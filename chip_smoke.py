@@ -1,21 +1,33 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
-Drives the port's main path — dense spherical photo+depth pair
-registration of the bundled golden pair (tests/golden/pair_1_10.npz) at
-1920x320, 5 pyramid levels, PHOTO_DEPTH, batch 8 — through the entry points
-a user calls, and checks it end to end:
+Drives the port's main paths through the entry points a user calls — dense
+spherical photo+depth pair registration of the bundled golden pair
+(tests/golden/pair_1_10.npz) at 1920x320, 5 pyramid levels, PHOTO_DEPTH,
+batch 8, and the dense odometry app over raw 8-sensor captures (load,
+undistort, stitch, register) — and checks them end to end:
 
   1. a CUDA device is present; print the card's name and power limit;
   2. build the CUDA kernels from rgbd360_torch/csrc (nvcc, sm_90a);
   3. each kernel against its plain PyTorch version on the card, at the
      shapes of the main path (L0, L1, L2; batch 8; real warps, a seam-
      straddling yaw and a two-band parallax case; every row policy and
-     anchor set): out (as int32 bits) and mask must be identical;
+     anchor set, and the single-buffer pass): out (as int32 bits) and mask
+     must be identical;
   4. parallel.batch.align_batch at batch 8: every pair passes
      bench.sanity_check(kernel_path=True), the 8 identical pairs agree, and
      the kernel launch counts of that run equal the windowed sweeps it ran
-     plus one dual-anchored pass;
+     plus one dual-anchored pass; then the same on the single-buffer route
+     (warp_gather.PIPELINE_KERNEL = False): its kernel carries every
+     windowed sweep;
   5. the RegisterPhotoICP facade on one pair;
+  5b. dense odometry (apps/odometry.py) over a synthetic dataset
+     (tools/synthetic_rig.py: the construction-spec rig, seeded CLAMS
+     models, 6 room captures 6 deg and ~8.4 cm apart) on the card, once on
+     the default route and once on the single-buffer route: all 5 pairs
+     accepted within the ground-truth bound, the L0-L2 sweeps carried by
+     the route's kernel, the panorama stitched on the card equal to the CPU
+     stitch but for at most 0.01% of its pixels, and the per-frame build
+     and align times;
   6. timing with CUDA events: warm align throughput on the default
      (windowed kernel) and the exact route, in alternating rounds, and each
      kernel beside its plain version at the L0 shape.
@@ -26,10 +38,14 @@ its output is the JSON status line. Run from the repository root:
     python3 chip_smoke.py
 """
 
+import contextlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -45,6 +61,8 @@ N_LEVELS = 5
 TIMED_ALIGNS = 3
 ROUTE_ROUNDS = 10
 TIMED_GATHERS = 20
+ODOMETRY_FRAMES = 6
+STITCH_DIFF_LIMIT = 1e-4  # share of panorama pixels: f32 sin/cos and truncation
 
 
 def card_line() -> str:
@@ -73,6 +91,85 @@ def yaw(angle: float) -> np.ndarray:
     pose = np.eye(4)
     pose[1:3, 1:3] = [[c, -s], [s, c]]
     return pose
+
+
+def _stage_ms(text: str, name: str) -> list:
+    return [float(ms) for ms in re.findall(rf"^{re.escape(name)} took ([0-9.]+) ms$", text, re.M)]
+
+
+def odometry_phase(dev, card) -> dict:
+    """Phase 5b. Returns the launch counts of the single-buffer run."""
+    from rgbd360_torch.apps import odometry
+    from rgbd360_torch.core.frame360 import Frame360
+    from rgbd360_torch.io.calib import Calib360
+    from rgbd360_torch.ops import photoicp, warp_gather
+    from rgbd360_torch.utils import timing
+    from tools import synthetic_rig as rig
+
+    build_stages = ("Frame360.loadFrame", "Frame360.undistort", "Frame360.stitchSphericalImage")
+    with tempfile.TemporaryDirectory() as tmp:
+        calib_root, seq = os.path.join(tmp, "calib"), os.path.join(tmp, "seq")
+        t0 = time.perf_counter()
+        rts = rig.write_calib_root(calib_root)
+        gt = rig.write_sequence(seq, rts, frames=ODOMETRY_FRAMES)
+        print(f"odometry dataset: {ODOMETRY_FRAMES} frames written in {time.perf_counter() - t0:.2f} s", flush=True)
+
+        # the panorama stitched on the card against the port's CPU stitch
+        calib = Calib360.load(calib_root)
+        frame_path = os.path.join(seq, "sphere_images_1.bin")
+        on_card = Frame360(calib, 1, dev).build(frame_path)
+        on_cpu = Frame360(calib, 1, "cpu").build(frame_path)
+        differ = ((on_card.sphere_rgb.cpu() != on_cpu.sphere_rgb).any(-1)
+                  | (on_card.sphere_depth_mm.cpu() != on_cpu.sphere_depth_mm))
+        n_differ = int(differ.sum())
+        print(f"stitch of frame 1, card vs CPU: {n_differ} of {differ.numel()} pixels differ "
+              f"(limit {int(STITCH_DIFF_LIMIT * differ.numel())})", flush=True)
+        if n_differ > STITCH_DIFF_LIMIT * differ.numel():
+            raise AssertionError(f"the card's stitch differs from the CPU's at {n_differ} pixels")
+
+        single_launches = None
+        for route, pipelined in (("default", True), ("single-buffer", False)):
+            out = os.path.join(tmp, f"out_{route}")
+            buf = io.StringIO()
+            try:
+                warp_gather.PIPELINE_KERNEL = pipelined
+                timing.stage_timing(True)
+                warp_gather.reset_launch_counts()
+                photoicp.reset_sweep_counts()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    rc = odometry.main([seq, "--calib-root", calib_root, "--out", out, "--device", str(dev)])
+                torch.cuda.synchronize()
+                app_ms = (time.perf_counter() - t0) * 1000.0
+                launches, sweeps = dict(warp_gather.LAUNCHES), dict(photoicp.SWEEPS)
+            finally:
+                warp_gather.PIPELINE_KERNEL = True
+                timing.stage_timing(False)
+            text = buf.getvalue()
+            print("".join(line + "\n" for line in text.splitlines() if line.startswith(("frame ", "trajectory"))), end="")
+            traj = np.loadtxt(os.path.join(out, "trajectory.txt")).reshape(-1, 4, 4)
+            errs = rig.relative_pose_errors(traj, gt)
+            build = np.sum([_stage_ms(text, name) for name in build_stages], axis=0)
+            align = np.array(_stage_ms(text, "Dense alignment 360"))
+            print(f"[{card}] odometry {route} route: {len(traj) - 1} of {ODOMETRY_FRAMES - 1} pairs accepted; "
+                  f"error vs ground truth max {errs[:, 0].max() * 1000:.3f} mm, {errs[:, 1].max():.4f} deg "
+                  f"(bound {rig.GT_T * 1000:.0f} mm, {rig.GT_ROT_DEG} deg); per-frame ms, synchronised: "
+                  f"build (load + undistort + stitch) {np.round(build, 3).tolist()} median {np.median(build):.3f}, "
+                  f"align {np.round(align, 3).tolist()} median {np.median(align):.3f}; "
+                  f"the whole app {app_ms:.1f} ms", flush=True)
+            print(f"launches {launches} sweeps {sweeps}", flush=True)
+            if rc != 0 or len(traj) != ODOMETRY_FRAMES:
+                raise AssertionError(f"odometry {route}: rc {rc}, {len(traj) - 1} pairs accepted")
+            if not ((errs[:, 0] < rig.GT_T).all() and (errs[:, 1] < rig.GT_ROT_DEG).all()):
+                raise AssertionError(f"odometry {route}: relative poses outside the ground-truth bound: {errs}")
+            kernel = "warp_gather_batched" if pipelined else "warp_gather_single"
+            other = "warp_gather_single" if pipelined else "warp_gather_batched"
+            if not (launches[kernel] == sweeps["windowed"] > 0 and launches[other] == 0
+                    and launches["warp_gather_batched_multi"] == sweeps["exact_final_dual"] == ODOMETRY_FRAMES - 1):
+                raise AssertionError(f"odometry {route}: the sweeps did not run through {kernel}: {launches} vs {sweeps}")
+            if not pipelined:
+                single_launches = launches
+    return single_launches
 
 
 def main() -> int:
@@ -105,7 +202,7 @@ def main() -> int:
     # -- 3. kernels against their plain versions ------------------------------
     src = photoicp.build_pyramid_set(gray_src, depth_src, N_LEVELS, is_target=False, sphere_seam_mask=True)
     trg = photoicp.build_pyramid_set(gray_trg, depth_trg, N_LEVELS, is_target=True, sphere_seam_mask=True)
-    max_err = {"warp_gather_batched": 0.0, "warp_gather_batched_multi": 0.0}
+    max_err = {"warp_gather_batched": 0.0, "warp_gather_batched_multi": 0.0, "warp_gather_single": 0.0}
     l0_operands = None
     for lv in (0, 1, 2):
         level = photoicp.make_level_data(src, trg, lv)
@@ -130,11 +227,15 @@ def main() -> int:
             ("warp_gather_batched", "max", vis2d),
             ("warp_gather_batched_multi", warp_gather.DUAL, miss),
             ("warp_gather_batched_multi", warp_gather.FULL, vis2d),
+            ("warp_gather_single", "mean", None),
         ]
         for name, how, active in cases:
             if name == "warp_gather_batched":
                 got = warp_gather.warp_gather_batched(planes, r2d, c2d, active, row_policy=how)
                 want = warp_gather.warp_gather_batched_plain(planes, r2d, c2d, active, row_policy=how)
+            elif name == "warp_gather_single":
+                got = warp_gather.warp_gather_single(planes, r2d, c2d)
+                want = warp_gather.warp_gather_single_plain(planes, r2d, c2d)
             else:
                 got = warp_gather.warp_gather_batched_multi(planes, r2d, c2d, active, anchors=how)
                 want = warp_gather.warp_gather_batched_multi_plain(planes, r2d, c2d, active, anchors=how)
@@ -176,6 +277,33 @@ def main() -> int:
             and launches["warp_gather_batched_multi"] == sweeps["exact_final_dual"] == 1):
         raise AssertionError(f"the main path did not run through the kernels: {launches} vs {sweeps}")
 
+    # the single-buffer route: warp_gather_batched runs the _kernel pass
+    try:
+        warp_gather.PIPELINE_KERNEL = False
+        warp_gather.reset_launch_counts()
+        photoicp.reset_sweep_counts()
+        res = align_batch(gray_src, depth_src, gray_trg, depth_trg, eye, photoicp.PHOTO_DEPTH, N_LEVELS)
+        torch.cuda.synchronize()
+        single_launches, single_sweeps = dict(warp_gather.LAUNCHES), dict(photoicp.SWEEPS)
+    finally:
+        warp_gather.PIPELINE_KERNEL = True
+    poses = res.pose.cpu().numpy()
+    for i in range(BATCH):
+        ok, reasons = bench.sanity_check(
+            poses[i], float(res.error[i]), bool(res.ill_posed[i]), res.num_iterations[i].cpu().numpy(),
+            golden=golden, kernel_path=True,
+        )
+        if not ok:
+            raise AssertionError(f"pair {i} fails the kernel-path rails on the single-buffer route: {reasons}")
+    print(f"align_batch B={BATCH} single-buffer route: signature {tuple(res.num_iterations[0].tolist())} "
+          f"|t| {np.linalg.norm(poses[0][:3, 3]):.6f} m error {float(res.error[0]):.6f} "
+          f"pose spread {float(np.abs(poses - poses[0]).max()):.3g}", flush=True)
+    print(f"launches {single_launches} sweeps {single_sweeps}", flush=True)
+    if not (single_launches["warp_gather_single"] == single_sweeps["windowed"] > 0
+            and single_launches["warp_gather_batched"] == 0
+            and single_launches["warp_gather_batched_multi"] == single_sweeps["exact_final_dual"] == 1):
+        raise AssertionError(f"the single-buffer route did not run through its kernel: {single_launches} vs {single_sweeps}")
+
     # -- 5. the facade ------------------------------------------------------------
     reg = RegisterPhotoICP(n_pyr_levels=N_LEVELS, device=dev)
     bgr = lambda key: torch.from_numpy(np.repeat(golden[f"gray_{key}_u8"][..., None], 3, axis=-1)).to(dev)
@@ -190,6 +318,9 @@ def main() -> int:
     )
     if not (facade_ok and np.isfinite(entropy)):
         raise AssertionError(f"facade result fails the rails: {reasons} entropy {entropy}")
+
+    # -- 5b. dense odometry over raw captures ----------------------------------
+    odometry_launches = odometry_phase(dev, card)
 
     # -- 6. timing -------------------------------------------------------------------
     # The two routes alternate, each leading every other round, so drift of
@@ -228,11 +359,20 @@ def main() -> int:
             lambda: warp_gather.warp_gather_batched_multi(planes, r2d, c2d, miss, anchors=warp_gather.DUAL),
             lambda: warp_gather.warp_gather_batched_multi_plain(planes, r2d, c2d, miss, anchors=warp_gather.DUAL),
         ),
+        "warp_gather_single": (
+            lambda: warp_gather.warp_gather_single(planes, r2d, c2d),
+            lambda: warp_gather.warp_gather_single_plain(planes, r2d, c2d),
+        ),
     }
     replaces = {
         "warp_gather_batched": "rgbd360_tpu/ops/warp_gather.py:254",
         "warp_gather_batched_multi": "rgbd360_tpu/ops/warp_gather.py:363",
+        "warp_gather_single": "rgbd360_tpu/ops/warp_gather.py:86",
     }
+    # each kernel's launches in the run of the path it carries: the golden
+    # align for the pipelined passes, the single-buffer odometry run for
+    # the _kernel pass
+    launches = dict(launches, warp_gather_single=odometry_launches["warp_gather_single"])
     kernels = []
     for name, (kernel_fn, plain_fn) in timing.items():
         # in turns: kernel, plain, plain, kernel

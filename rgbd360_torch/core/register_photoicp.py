@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from rgbd360_torch.ops import photoicp
+from rgbd360_torch.utils.timing import stage
 
 PHOTO_CONSISTENCY = photoicp.PHOTO_CONSISTENCY
 DEPTH_CONSISTENCY = photoicp.DEPTH_CONSISTENCY
@@ -104,8 +105,11 @@ class RegisterPhotoICP:
         """occlusion: 0 plain, 1 z-buffered (Occ1), 2 + dynamic occlusion
         (Occ2), as the reference parameter (RegisterPhotoICP.h:4519).
         full_coverage: the triple-anchored gather in every sweep (loop-
-        closure refinement, relocalization verify). Returns the pose."""
-        self.dispatch_frames360(pose_guess, method, occlusion=occlusion, full_coverage=full_coverage)
+        closure refinement, relocalization verify). Returns the pose.
+        Timed as the stage "Dense alignment 360" (utils/timing.py), up to
+        the host copy of the result."""
+        with stage("Dense alignment 360", sync=lambda: self._fetch() if self._flat is not None else None):
+            self.dispatch_frames360(pose_guess, method, occlusion=occlusion, full_coverage=full_coverage)
         return self.get_optimal_pose()
 
     def dispatch_frames360(

@@ -4,10 +4,12 @@
 //   * _kernel_pipelined (single row policy mean/min/max, via
 //     warp_gather_batched), and
 //   * _kernel_pipelined_multi + _gather_tile (anchor sets ("min","max") and
-//     ("mean","min","max"), via warp_gather_batched_multi).
+//     ("mean","min","max"), via warp_gather_batched_multi);
+//   * _kernel, the single-buffer mean pass (warp_gather_batched under
+//     PIPELINE_KERNEL = False, via warp_gather_single): the kSingle mode.
 // A single-anchor pass is the multi-anchor pass with one anchor, so one
-// kernel serves both; rgbd360_torch/ops/warp_gather.py is its wrapper and
-// holds the plain PyTorch version it is held to bit for bit.
+// kernel serves all three; rgbd360_torch/ops/warp_gather.py is its wrapper
+// and holds the plain PyTorch version it is held to bit for bit.
 //
 // What it computes, per (batch, 8-row x 128-column source tile):
 //   1. over the tile's active pixels: the column min/max, the seam straddle
@@ -21,6 +23,14 @@
 //      its target; a covered pixel copies the 8 target channels as int32
 //      bits (never float arithmetic: the planes hold -0.0 and denormals),
 //      with channel 6 set to the f32 1.0 flag; an uncovered pixel writes 0.
+//
+// kSingle (_kernel) differs in three ways: there is no active mask, and the
+// threads of the ragged last tile read the edge-replicated indices and take
+// part in every statistic (the TPU kernel pads its index arrays in edge
+// mode); a covered value is accumulated in f32 on the TPU, whose adds flush
+// denormals, so it is written as 0.0 + x under flush-to-zero: +0.0 where the
+// exponent field is 0 (+-0.0, denormals), x otherwise — done on the bits;
+// channel 6 is the gathered channel, and the mask is the only coverage output.
 //
 // On the TPU the window is a DMA'd copy in VMEM. Here it is only a coverage
 // predicate: a covered pixel reads its target straight from global memory.
@@ -54,6 +64,7 @@ constexpr int K = 4;      // per-output-row row window
 constexpr int PC = 256;   // target window columns
 constexpr int BIG = 1 << 24;
 constexpr int FLAG_BITS = 0x3F800000;  // f32 1.0
+constexpr int EXP_BITS = 0x7F800000;   // f32 exponent field
 constexpr int ANCHOR_MEAN = 0;
 constexpr int ANCHOR_MIN = 1;
 constexpr int ANCHOR_MAX = 2;
@@ -75,6 +86,7 @@ __device__ __forceinline__ int floor_div(int a, int b) {
   return (a % b != 0 && a < 0) ? q - 1 : q;
 }
 
+template <bool kSingle>
 __global__ void __launch_bounds__(BR * BC)
 warp_gather_kernel(const int* __restrict__ planes,     // (B, Ht, 8, Wt) f32 bits
                    const int* __restrict__ r_idx,      // (B, Ho, Wo)
@@ -96,7 +108,12 @@ warp_gather_kernel(const int* __restrict__ planes,     // (B, Ht, 8, Wt) f32 bit
 
   int r = 0, c = 0;
   bool act = false;
-  if (inside) {
+  if (kSingle) {  // edge-replicated pad pixels, all active
+    const size_t src = ((size_t)b * Ho + min(row, Ho - 1)) * Wo + min(col, Wo - 1);
+    r = r_idx[src];
+    c = c_idx[src];
+    act = true;
+  } else if (inside) {
     r = r_idx[pix];
     c = c_idx[pix];
     act = active == nullptr || active[pix] != 0;
@@ -205,7 +222,8 @@ warp_gather_kernel(const int* __restrict__ planes,     // (B, Ht, 8, Wt) f32 bit
     hit = hit || (ok[a] && lr[a] >= lo && lr[a] < lo + K);
   }
 
-  // 3. output: the 8 channels as bits, flag in channel 6
+  // 3. output: the 8 channels as bits, flag in channel 6 (kSingle: the
+  // flushed f32 sum 0.0 + x of every channel)
   if (!inside) return;
   const size_t plane = (size_t)Ho * Wo;
   int* o = out + (size_t)b * 8 * plane + (size_t)row * Wo + col;
@@ -215,12 +233,17 @@ warp_gather_kernel(const int* __restrict__ planes,     // (B, Ht, 8, Wt) f32 bit
     const int* src = planes + ((size_t)b * Ht + r) * 8 * (size_t)Wt + cc;
 #pragma unroll
     for (int ch = 0; ch < 8; ++ch) {
-      o[ch * plane] = ch == 6 ? FLAG_BITS : src[(size_t)ch * Wt];
+      const int v = src[(size_t)ch * Wt];
+      if (kSingle) {
+        o[ch * plane] = (v & EXP_BITS) != 0 ? v : 0;
+      } else {
+        o[ch * plane] = ch == 6 ? FLAG_BITS : v;
+      }
     }
   } else {
 #pragma unroll
     for (int ch = 0; ch < 8; ++ch) {
-      o[ch * plane] = (ch == 6 && hit) ? FLAG_BITS : 0;
+      o[ch * plane] = (!kSingle && ch == 6 && hit) ? FLAG_BITS : 0;
     }
   }
   mask[pix] = hit ? 1 : 0;
@@ -244,10 +267,31 @@ extern "C" int rgbd360_warp_gather(const void* planes, const void* r_idx,
   anchors.code[2] = a2;
   const dim3 block(BC, BR);
   const dim3 grid((Wo + BC - 1) / BC, (Ho + BR - 1) / BR, B);
-  warp_gather_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+  warp_gather_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
       static_cast<const int*>(planes), static_cast<const int*>(r_idx),
       static_cast<const int*>(c_idx), static_cast<const uint8_t*>(active),
       static_cast<int*>(out), static_cast<uint8_t*>(mask), Ht, Wt, Ho, Wo,
       w_eff, hp, wp_ext, read_end, anchors);
+  return (int)cudaGetLastError();
+}
+
+// The single-buffer mean pass (_kernel): no active mask, one "mean" anchor.
+extern "C" int rgbd360_warp_gather_single(const void* planes, const void* r_idx,
+                                          const void* c_idx, void* out, void* mask,
+                                          int B, int Ht, int Wt, int Ho, int Wo,
+                                          int w_eff, int hp, int wp_ext,
+                                          int read_end, void* stream) {
+  if (B <= 0 || Ho <= 0 || Wo <= 0) return 0;
+  Anchors anchors;
+  anchors.n = 1;
+  anchors.code[0] = ANCHOR_MEAN;
+  anchors.code[1] = anchors.code[2] = ANCHOR_MEAN;
+  const dim3 block(BC, BR);
+  const dim3 grid((Wo + BC - 1) / BC, (Ho + BR - 1) / BR, B);
+  warp_gather_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
+      static_cast<const int*>(planes), static_cast<const int*>(r_idx),
+      static_cast<const int*>(c_idx), nullptr, static_cast<int*>(out),
+      static_cast<uint8_t*>(mask), Ht, Wt, Ho, Wo, w_eff, hp, wp_ext, read_end,
+      anchors);
   return (int)cudaGetLastError();
 }

@@ -65,6 +65,9 @@ def _bind(lib) -> None:
     fn = lib.rgbd360_warp_gather
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.rgbd360_warp_gather_single
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
 
 
 def build(verbose: bool = False) -> str:

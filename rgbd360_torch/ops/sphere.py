@@ -9,8 +9,8 @@ and the forward projection of the dense aligner
 (reference include/RegisterPhotoICP.h:2675-2680):
     dist = |p|;  phi' = asin(x/dist);  theta' = atan2(y, z) + pi
     row' = round(0.5*H-0.5 - phi'/angle_res);  col' = round(theta'/angle_res)
-``sphere_cloud_from_image`` (sphere.py:64) belongs to frame assembly and is
-ported with it.
+``sphere_cloud_from_image`` (sphere.py:64) is the colored cloud of a
+stitched panorama (frame assembly).
 """
 
 from __future__ import annotations
@@ -59,3 +59,29 @@ def sphere_project(p: torch.Tensor, h: int, w: int):
     c_int = round_half_away(theta * angle_res_inv).to(torch.int32)
     inb = (r_int >= 0) & (r_int < h) & (c_int >= 0) & (c_int < w)
     return dist, r_int, c_int, inb
+
+
+def sphere_cloud_from_image(sphere_rgb: torch.Tensor, sphere_depth_m: torch.Tensor):
+    """Colored spherical point cloud from the stitched panorama (sphere.py:64;
+    reference include/Frame360.h:555-612 buildSphereCloud_fromImage).
+
+    This variant uses an offset phi grid (31.5 deg top, 1/angle_pixel
+    spacing) rather than the aligner's half-pixel-centred grid, as the
+    reference does. Invalid (zero-depth) points become NaN. Returns xyz
+    (H, W, 3) f32 and rgb (H, W, 3) u8 (the BGR panorama reversed)."""
+    h, w = sphere_depth_m.shape
+    dev = sphere_depth_m.device
+    angle_pixel_inv = 2.0 * math.pi / w
+    offset_phi = math.pi * 31.5 / 180.0
+    row = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    col = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+    phi = offset_phi - row * angle_pixel_inv
+    theta = col * angle_pixel_inv
+    d = sphere_depth_m
+    x = torch.sin(phi) * d
+    y = -torch.cos(phi) * torch.sin(theta) * d
+    z = -torch.cos(phi) * torch.cos(theta) * d
+    nan = torch.full((), float("nan"), device=dev)
+    invalid = d == 0
+    xyz = torch.stack([torch.where(invalid, nan, x), torch.where(invalid, nan, y), torch.where(invalid, nan, z)], dim=-1)
+    return xyz, torch.flip(sphere_rgb, dims=(-1,))

@@ -30,14 +30,31 @@ Data moves as int32 bits and is selected, never accumulated: the target
 planes hold -0.0 (the seam mask multiplies negative gradients by 0) and
 f32 denormals, and a float ``acc + val`` would turn -0.0 into +0.0.
 
+The single-buffer pass (``warp_gather_single``; the Pallas ``_kernel``,
+JAX :86) is what ``warp_gather_batched`` runs when the module constant
+``PIPELINE_KERNEL`` is False, as in JAX (:644, :688-711). It is a mean
+pass, but not the pipelined mean pass with ``active`` all-true:
+  * it takes no ``active`` (any given is ignored, whatever the
+    ``row_policy``): every pixel of the (8, 128) tile grid takes part, the
+    edge-replicated pad pixels too, in the straddle test, the window origin
+    and the row means — so on a level whose last column tile is half pad
+    (960 and 480 wide) its windows differ from the pipelined pass's;
+  * the output is accumulated in f32 (``acc + where(sel, val, 0.0)``), and
+    both backends of the JAX package flush denormals in float adds (the TPU;
+    XLA on the CPU runs with DAZ/FTZ set, so interpret mode does too). So a
+    gathered -0.0 or denormal comes back as +0.0: ``0.0 + x`` is x for every
+    other non-NaN x. Both versions compute that on the bits (exponent field
+    0 -> 0), which no float unit or compiler flag can change;
+  * channel 6 is the gathered channel, not the flag; the mask is separate.
+Both the plain version and csrc/warp_gather.cu keep these bit for bit.
+
 Each public wrapper takes CPU tensors through its plain PyTorch version and
 CUDA tensors through the kernel (or raises); there is no fallback between
 the two. ``LAUNCHES`` counts kernel launches per wrapper.
 
-Not ported: the ``_kernel`` single-buffer fallback (JAX :86, reached only
-with ``PIPELINE_KERNEL = False``; still to port, see ROADMAP.md), the
-``custom_vmap`` single-pair entries (the port is batched throughout), and
-the ``RGBD360_WARP_*`` environment knobs (the window constants are fixed).
+Not ported: the ``custom_vmap`` single-pair entries (the port is batched
+throughout) and the ``RGBD360_WARP_*`` environment knobs (the window
+constants are fixed).
 """
 
 from __future__ import annotations
@@ -53,14 +70,19 @@ K = 4  # per-output-row row window
 PC = 256  # target window columns
 _BIG = 1 << 24  # sentinel of the masked reductions (JAX :211)
 _FLAG_BITS = 0x3F800000  # f32 1.0, the in-window flag of channel 6
+_EXP_BITS = 0x7F800000  # f32 exponent field: 0 for +-0.0 and denormals
 
 ANCHOR_CODES = {"mean": 0, "min": 1, "max": 2}
 # anchor sets the path uses: the exact-final re-gather and full coverage
 DUAL = ("min", "max")
 FULL = ("mean", "min", "max")
 
+# JAX warp_gather.py:208: False sends warp_gather_batched through the
+# single-buffer pass. Read at call time; set it on the module.
+PIPELINE_KERNEL = True
+
 # kernel launches per wrapper; reset by the caller that reads them
-LAUNCHES = {"warp_gather_batched": 0, "warp_gather_batched_multi": 0}
+LAUNCHES = {"warp_gather_batched": 0, "warp_gather_batched_multi": 0, "warp_gather_single": 0}
 
 
 def reset_launch_counts() -> None:
@@ -103,9 +125,10 @@ def _untile(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 1, 3, 2, 4).reshape(b, nr * BR, nc * BC)
 
 
-def _pad_indices(r_idx, c_idx, active):
-    """Edge-replicate r/c and zero-pad active to the (BR, BC) grid
-    (_prep_operands, JAX :197-200): pad pixels never participate."""
+def _pad_indices(r_idx, c_idx, active, pad_active=False):
+    """Edge-replicate r/c and pad active with ``pad_active`` to the (BR, BC)
+    grid (_prep_operands, JAX :197-200): pad pixels take no part in the
+    pipelined passes, and every part in the single-buffer one."""
     _, ho, wo = r_idx.shape
     hop, wop = _round_up(ho, BR), _round_up(wo, BC)
     if (hop, wop) != (ho, wo):
@@ -114,7 +137,7 @@ def _pad_indices(r_idx, c_idx, active):
         ci = torch.clamp(torch.arange(wop, device=dev), max=wo - 1)
         r_idx = r_idx.index_select(1, ri).index_select(2, ci)
         c_idx = c_idx.index_select(1, ri).index_select(2, ci)
-        active = torch.nn.functional.pad(active, (0, wop - wo, 0, hop - ho))
+        active = torch.nn.functional.pad(active, (0, wop - wo, 0, hop - ho), value=pad_active)
     return r_idx, c_idx, active, hop, wop
 
 
@@ -160,7 +183,7 @@ def tile_origins(r_idx, c_idx, active, w_real, hp, wp_ext, anchor="min"):
     return r0[..., 0, 0].to(torch.int32), c0[..., 0, 0].to(torch.int32)
 
 
-def _windows(r_idx, c_idx, active, policies, target_shape, wrap):
+def _windows(r_idx, c_idx, active, policies, target_shape, wrap, pad_active=False):
     """Coverage of each row policy, plus the seam-remapped columns.
 
     r_idx/c_idx (B, Ho, Wo) i32, active (B, Ho, Wo) bool. Returns
@@ -168,7 +191,7 @@ def _windows(r_idx, c_idx, active, policies, target_shape, wrap):
     _, ho, wo = r_idx.shape
     ht, wt = target_shape
     hp, wp_ext, w, _halo = _geometry(ht, wt, wrap)
-    r_p, c_p, a_p, hop, wop = _pad_indices(r_idx, c_idx, active)
+    r_p, c_p, a_p, hop, wop = _pad_indices(r_idx, c_idx, active, pad_active)
     r_t, c_t = _tile_view(r_p, hop, wop), _tile_view(c_p, hop, wop)
     a_t = _tile_view(a_p, hop, wop)
     c_t = _remap_seam(c_t, a_t, w)
@@ -215,25 +238,32 @@ def window_mask_reference(
     return mask[0] if single else mask
 
 
-def _gather_plain(planes, r_idx, c_idx, active, policies, wrap):
-    """Plain version of the kernel for any anchor list: OR of the
-    per-anchor coverage, then a bitwise select of the direct read."""
+def _read_covered(planes, r_idx, c_rm, hit, wrap):
+    """The 8 target channels of each covered pixel as int32 bits, 0 where
+    uncovered: (B, 8, Ho, Wo). The halo-padded read: remapped columns
+    wt.. read wt+j -> j; anything past the halo, or past the last row, is
+    the TPU copy's zero padding (unreachable for clipped indices, kept so
+    both versions agree anyway)."""
     bsz, ht, _cdim, wt = planes.shape
-    masks, c_rm = _windows(r_idx, c_idx, active, policies, (ht, wt), wrap)
-    hit = masks[0]
-    for m in masks[1:]:
-        hit = hit | m
-    # the halo-padded read: remapped columns wt.. read wt+j -> j; anything
-    # past the halo, or past the last row, is the TPU copy's zero padding
-    # (unreachable for clipped indices, kept so both versions agree anyway)
     _hp, _wp, _w, halo = _geometry(ht, wt, wrap)
     readable = (r_idx >= 0) & (r_idx < ht) & (c_rm >= 0) & (c_rm < wt + halo)
     rr = torch.clamp(r_idx, 0, ht - 1).long()
     cc = torch.clamp(torch.where(c_rm >= wt, c_rm - wt, c_rm), 0, wt - 1).long()
     b_idx = torch.arange(bsz, device=planes.device).view(bsz, 1, 1)
-    bits = planes.view(torch.int32)[b_idx, rr, :, cc].permute(0, 3, 1, 2)  # (B, 8, Ho, Wo)
+    bits = planes.view(torch.int32)[b_idx, rr, :, cc].permute(0, 3, 1, 2)
     take = (hit & readable)[:, None]
-    out = torch.where(take, bits, torch.zeros((), dtype=torch.int32, device=bits.device))
+    return torch.where(take, bits, torch.zeros((), dtype=torch.int32, device=bits.device))
+
+
+def _gather_plain(planes, r_idx, c_idx, active, policies, wrap):
+    """Plain version of the kernel for any anchor list: OR of the
+    per-anchor coverage, then a bitwise select of the direct read."""
+    _bsz, ht, _cdim, wt = planes.shape
+    masks, c_rm = _windows(r_idx, c_idx, active, policies, (ht, wt), wrap)
+    hit = masks[0]
+    for m in masks[1:]:
+        hit = hit | m
+    out = _read_covered(planes, r_idx, c_rm, hit, wrap)
     out[:, 6] = torch.where(hit, _FLAG_BITS, 0).to(torch.int32)
     return out.view(torch.float32), hit
 
@@ -264,8 +294,22 @@ def warp_gather_batched_multi_plain(planes, r_idx, c_idx, active, wrap=True, anc
     return _gather_plain(planes, r_idx, c_idx, active, tuple(anchors), wrap)
 
 
+def warp_gather_single_plain(planes, r_idx, c_idx, wrap=True):
+    """Plain torch version of ``warp_gather_single``: the mean pass with
+    every pixel of the padded tile grid active, then the flushing f32
+    accumulation of the covered read (0.0 + val: -0.0 and denormals become
+    +0.0) into all 8 channels."""
+    _bsz, ht, _cdim, wt = planes.shape
+    every = torch.ones(r_idx.shape, dtype=torch.bool, device=r_idx.device)
+    (hit,), c_rm = _windows(r_idx, c_idx, every, ("mean",), (ht, wt), wrap, pad_active=True)
+    bits = _read_covered(planes, r_idx, c_rm, hit, wrap)
+    out = torch.where((bits & _EXP_BITS) != 0, bits, torch.zeros((), dtype=torch.int32, device=bits.device))
+    return out.view(torch.float32), hit
+
+
 def _launch(planes, r_idx, c_idx, active, anchors, wrap):
-    """Run csrc/warp_gather.cu on CUDA tensors; raise on any failure."""
+    """Run csrc/warp_gather.cu on CUDA tensors; raise on any failure.
+    ``anchors`` None runs the single-buffer entry (no active, no flag)."""
     from rgbd360_torch.kernels.build import load_library
 
     for t, name in ((planes, "planes"), (r_idx, "r"), (c_idx, "c")):
@@ -273,26 +317,24 @@ def _launch(planes, r_idx, c_idx, active, anchors, wrap):
             raise ValueError(f"{name} must be contiguous")
     if active is not None and not active.is_contiguous():
         raise ValueError("active must be contiguous")
-    if not 1 <= len(anchors) <= 3 or any(a not in ANCHOR_CODES for a in anchors):
-        raise ValueError(f"anchors must be 1-3 of {tuple(ANCHOR_CODES)}, got {anchors}")
     bsz, ht, _c, wt = planes.shape
     _, ho, wo = r_idx.shape
     hp, wp_ext, w_eff, halo = _geometry(ht, wt, wrap)
-    codes = [ANCHOR_CODES[a] for a in anchors] + [0] * (3 - len(anchors))
     out = torch.empty((bsz, 8, ho, wo), dtype=torch.float32, device=planes.device)
     mask = torch.empty((bsz, ho, wo), dtype=torch.bool, device=planes.device)
+    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (planes, r_idx, c_idx)]
+    outs = [ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(mask.data_ptr())]
+    dims = (bsz, ht, wt, ho, wo, w_eff, hp, wp_ext, wt + halo)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(planes.device).cuda_stream)
     lib = load_library()
-    err = lib.rgbd360_warp_gather(
-        ctypes.c_void_p(planes.data_ptr()),
-        ctypes.c_void_p(r_idx.data_ptr()),
-        ctypes.c_void_p(c_idx.data_ptr()),
-        ctypes.c_void_p(active.data_ptr() if active is not None else 0),
-        ctypes.c_void_p(out.data_ptr()),
-        ctypes.c_void_p(mask.data_ptr()),
-        bsz, ht, wt, ho, wo, w_eff, hp, wp_ext, wt + halo,
-        len(anchors), codes[0], codes[1], codes[2],
-        ctypes.c_void_p(torch.cuda.current_stream(planes.device).cuda_stream),
-    )
+    if anchors is None:
+        err = lib.rgbd360_warp_gather_single(*ptrs, *outs, *dims, stream)
+    else:
+        if not 1 <= len(anchors) <= 3 or any(a not in ANCHOR_CODES for a in anchors):
+            raise ValueError(f"anchors must be 1-3 of {tuple(ANCHOR_CODES)}, got {anchors}")
+        codes = [ANCHOR_CODES[a] for a in anchors] + [0] * (3 - len(anchors))
+        act = ctypes.c_void_p(active.data_ptr() if active is not None else 0)
+        err = lib.rgbd360_warp_gather(*ptrs, act, *outs, *dims, len(anchors), *codes, stream)
     if err != 0:
         raise RuntimeError(f"warp_gather kernel launch failed: cudaError_t {err}")
     return out, mask
@@ -306,10 +348,15 @@ def warp_gather_batched(planes, r_idx, c_idx, active=None, row_policy="mean", wr
     (B, Ho, Wo) bool — only these pixels place windows and are gathered;
     wrap: columns wrap at Wt (the panorama theta seam).
     Returns (out (B, 8, Ho, Wo) f32 with the in-window flag in channel 6,
-    in_window (B, Ho, Wo) bool)."""
+    in_window (B, Ho, Wo) bool).
+
+    With ``PIPELINE_KERNEL`` False this is ``warp_gather_single`` whatever
+    the row policy, and ``active`` is ignored (JAX :688-711)."""
     _check(planes, r_idx, c_idx, active)
     if row_policy not in ANCHOR_CODES:
         raise ValueError(f"row_policy must be one of {tuple(ANCHOR_CODES)}, got {row_policy!r}")
+    if not PIPELINE_KERNEL:
+        return warp_gather_single(planes, r_idx, c_idx, wrap)
     if planes.device.type == "cpu":
         return warp_gather_batched_plain(planes, r_idx, c_idx, active, row_policy, wrap)
     result = _launch(planes, r_idx, c_idx, active, (row_policy,), wrap)
@@ -330,4 +377,18 @@ def warp_gather_batched_multi(planes, r_idx, c_idx, active, wrap=True, anchors=D
         return warp_gather_batched_multi_plain(planes, r_idx, c_idx, active, wrap, anchors)
     result = _launch(planes, r_idx, c_idx, active, anchors, wrap)
     LAUNCHES["warp_gather_batched_multi"] += 1
+    return result
+
+
+def warp_gather_single(planes, r_idx, c_idx, wrap=True):
+    """The single-buffer mean pass (JAX ``_kernel`` :86, run by
+    warp_gather_batched under PIPELINE_KERNEL = False :688-711). Same
+    operands as ``warp_gather_batched`` without ``active``. Returns (out
+    (B, 8, Ho, Wo) f32, f32-accumulated, channel 6 gathered; in_window
+    (B, Ho, Wo) bool)."""
+    _check(planes, r_idx, c_idx, None)
+    if planes.device.type == "cpu":
+        return warp_gather_single_plain(planes, r_idx, c_idx, wrap)
+    result = _launch(planes, r_idx, c_idx, None, None, wrap)
+    LAUNCHES["warp_gather_single"] += 1
     return result

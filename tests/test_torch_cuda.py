@@ -96,6 +96,13 @@ def run_port(planes, r, c, active, variant, device="cpu", plain=False):
     return out.cpu().numpy(), mask.cpu().numpy()
 
 
+def run_single(planes, r, c, device="cpu", plain=False):
+    """The single-buffer pass (the Pallas ``_kernel``) on numpy operands."""
+    fn = tw.warp_gather_single_plain if plain else tw.warp_gather_single
+    out, mask = fn(*(torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in (planes, r, c)))
+    return out.cpu().numpy(), mask.cpu().numpy()
+
+
 def assert_bit_exact(got, want):
     (out_t, mask_t), (out_j, mask_j) = got, want
     assert out_t.shape == out_j.shape and out_t.dtype == np.float32
@@ -131,3 +138,22 @@ def test_warp_gather_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         tw.warp_gather_batched(P, R.transpose(1, 2).contiguous().transpose(1, 2), C)  # not contiguous
     with pytest.raises(ValueError):
         tw.warp_gather_batched(P, R.cpu(), C)  # two devices
+
+
+@pytest.mark.cuda
+def test_single_buffer_kernel_bit_exact_vs_plain(cuda, monkeypatch):
+    """The kSingle mode of csrc/warp_gather.cu (the Pallas ``_kernel``)
+    against its plain version, directly and through warp_gather_batched
+    under PIPELINE_KERNEL = False (which ignores row policy and active)."""
+    for name in SCENES + ["wide"]:
+        planes, r, c, active = wide_scene() if name == "wide" else scene(name)
+        before = tw.LAUNCHES["warp_gather_single"]
+        got = run_single(planes, r, c, device=cuda)
+        torch.cuda.synchronize()
+        assert tw.LAUNCHES["warp_gather_single"] == before + 1
+        assert_bit_exact(got, run_single(planes, r, c, device=cuda, plain=True))
+        monkeypatch.setattr(tw, "PIPELINE_KERNEL", False)
+        routed = run_port(planes, r, c, active, "min", device=cuda)
+        monkeypatch.setattr(tw, "PIPELINE_KERNEL", True)
+        assert tw.LAUNCHES["warp_gather_single"] == before + 2
+        assert_bit_exact(routed, got)

@@ -11,7 +11,10 @@ parallel/batch.py, convert.py) against the JAX package, on the CPU.
   * the vmap-of-while semantics of the batched Gauss-Newton loop;
   * the windowed route at full resolution on the golden pair, held to
     bench.sanity_check(kernel_path=True): the CPU preview of what the card
-    must print.
+    must print;
+  * the same on the single-buffer route (PIPELINE_KERNEL = False): the
+    windowed sweep at the golden fixed poses against JAX's with its
+    ``_kernel`` in interpret mode, and a free align held to the same rails.
 """
 
 import math
@@ -34,6 +37,7 @@ from rgbd360_torch.ops import image as t_image  # noqa: E402
 from rgbd360_torch.ops import linalg6 as t_linalg6  # noqa: E402
 from rgbd360_torch.ops import photoicp as tp  # noqa: E402
 from rgbd360_torch.ops import se3 as t_se3  # noqa: E402
+from rgbd360_torch.ops import warp_gather as tw  # noqa: E402
 from rgbd360_torch.ops.sphere import sphere_xyz_lut as t_lut  # noqa: E402
 from rgbd360_torch.parallel.batch import align_batch as t_align_batch  # noqa: E402
 from rgbd360_tpu.ops import photoicp as jp  # noqa: E402
@@ -412,6 +416,53 @@ def test_full_coverage_windowed_route_agrees_with_exact_route(golden, windowed_r
     rot = float(t_se3.rot_angle_deg(res_w.pose[0, :3, :3], res_e.pose[0, :3, :3]))
     assert dt < 0.06 and rot < 2.0, (dt, rot)
     assert math.isfinite(float(res_w.error[0])) and not bool(res_w.ill_posed[0])
+
+
+@pytest.fixture()
+def single_buffer(interpret_kernel, monkeypatch):
+    """Both packages' warp_gather_batched on the single-buffer ``_kernel``;
+    JAX reads the flag at trace time, hence the cleared jit cache."""
+    monkeypatch.setattr(jw, "PIPELINE_KERNEL", False)
+    monkeypatch.setattr(tw, "PIPELINE_KERNEL", False)
+    jw.warp_gather_batched.clear_cache()
+    yield
+    jw.warp_gather_batched.clear_cache()
+
+
+@pytest.mark.parametrize("level_idx", [0, 1, 2])
+def test_single_buffer_sweep_matches_jax_at_golden_poses(golden, single_buffer, level_idx):
+    """The windowed sweep of the levels the kernel serves (L0-L2 of the
+    golden pair, at the golden incoming pose of the level) on the
+    single-buffer route: the port (plain ``_kernel``) against JAX's kernel
+    branch with ``_kernel`` in interpret mode, to the tolerances of
+    test_windowed_sweep_matches_jax_kernel_branch (bit-identical gathers:
+    exact counts; sums to 1e-5 of the matrix scale)."""
+    src_j, trg_j = _jax_golden_pyramids(golden)
+    pose = golden["free_level_pose_in"][int(golden["n_levels"]) - 1 - level_idx].astype(np.float32)
+    level_np = jp.LevelData(*[np.asarray(x) for x in jp.make_level_data(src_j, trg_j, level_idx)])
+    got, want = _sweep_pair(level_np, pose, windowed=True)
+    _assert_state_close(got, want, 1e-5)
+    assert int(got[5]) > 1000
+
+
+def test_single_buffer_route_full_resolution_passes_kernel_path_rails(golden, windowed_route, monkeypatch):
+    """The golden pair at 1920x320, 5 levels, PHOTO_DEPTH on the
+    single-buffer route (L0-L2 sweeps through the plain ``_kernel``, the
+    exact-final still dual-anchored). Measured on the CPU: signature
+    (0, 7, 10, 10, 10), finest error 2.393919, |t| 0.312743 m, so it is held
+    to the default route's rails (bench.sanity_check(kernel_path=True))."""
+    monkeypatch.setattr(tw, "PIPELINE_KERNEL", False)
+    imgs = [_t(x)[None] for x in _golden_images(golden)]
+    tp.reset_sweep_counts()
+    res = t_align_batch(*imgs, torch.eye(4)[None])
+    ok, reasons = bench.sanity_check(
+        res.pose[0].numpy(), float(res.error[0]), bool(res.ill_posed[0]), res.num_iterations[0].numpy(),
+        golden=golden, kernel_path=True,
+    )
+    assert ok, reasons
+    assert tuple(res.num_iterations[0].tolist()) == (0, 7, 10, 10, 10)
+    assert abs(float(res.error[0]) - 2.393919) < 0.05
+    assert tp.SWEEPS == {"windowed": 33, "exact": 11, "exact_final_dual": 1}
 
 
 def test_windowed_route_full_resolution_passes_kernel_path_rails(golden, windowed_route):

@@ -4,8 +4,10 @@ against the JAX package's Pallas kernels run in interpret mode on the CPU.
 The plain PyTorch version must equal the TPU kernel BIT FOR BIT, on the
 gathered channels (compared as int32 bits, so -0.0, denormals and NaN
 payloads count) and on the in-window mask, for every row policy and
-anchor set. The CUDA kernel is held to the plain version on the card
-by tests/test_torch_cuda.py and chip_smoke.py.
+anchor set, and for the single-buffer ``_kernel`` that
+warp_gather_batched runs under PIPELINE_KERNEL = False. The CUDA kernel
+is held to the plain version on the card by tests/test_torch_cuda.py and
+chip_smoke.py.
 """
 
 import numpy as np
@@ -21,7 +23,7 @@ from rgbd360_torch.ops import warp_gather as tw  # noqa: E402
 from rgbd360_tpu.ops import warp_gather as jw  # noqa: E402
 # the scenes are shared with the jax-free card tests
 import test_torch_cuda as ts  # noqa: E402
-from test_torch_cuda import ANCHORS, SCENES, VARIANTS, assert_bit_exact, run_port  # noqa: E402
+from test_torch_cuda import ANCHORS, SCENES, VARIANTS, assert_bit_exact, run_port, run_single  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -41,6 +43,18 @@ def interpret_kernel():
     pl.pallas_call = orig
     jw.warp_gather_batched.clear_cache()
     jw.warp_gather_batched_multi.clear_cache()
+
+
+@pytest.fixture()
+def single_buffer(interpret_kernel, monkeypatch):
+    """Both packages on the single-buffer route. JAX reads PIPELINE_KERNEL
+    when it traces warp_gather_batched, so the jit cache is cleared on
+    either side of the test: a stale trace would run the other kernel."""
+    monkeypatch.setattr(jw, "PIPELINE_KERNEL", False)
+    monkeypatch.setattr(tw, "PIPELINE_KERNEL", False)
+    jw.warp_gather_batched.clear_cache()
+    yield
+    jw.warp_gather_batched.clear_cache()
 
 
 def _run_jax(planes, r, c, active, variant):
@@ -85,6 +99,50 @@ def test_plain_gather_bit_exact_on_960_wide_wrap_level(interpret_kernel, variant
     got = run_port(planes, r, c, active, variant)
     assert_bit_exact(got, want)
     assert got[1][1].mean() > 0.5  # the yawed pair is mostly covered
+
+
+SINGLE_CASES = [(name, "mean") for name in SCENES] + [("wide", "mean"), ("wide", "max"), ("empty_tiles", "min")]
+
+
+@pytest.mark.parametrize("scene,policy", SINGLE_CASES)
+def test_single_buffer_plain_bit_exact_vs_pallas_interpret(single_buffer, scene, policy):
+    """warp_gather_batched under PIPELINE_KERNEL = False runs the Pallas
+    ``_kernel`` whatever the row policy, and ignores ``active`` (sparse in
+    empty_tiles): the port's route and its plain version equal it bit for
+    bit, on the scenes and on the 960-wide level."""
+    planes, r, c, active = ts.wide_scene() if scene == "wide" else ts.scene(scene)
+    want = _run_jax(planes, r, c, active, policy)
+    before = dict(tw.LAUNCHES)
+    assert_bit_exact(run_port(planes, r, c, active, policy), want)
+    assert_bit_exact(run_single(planes, r, c, plain=True), want)
+    assert tw.LAUNCHES == before  # no kernel launch on the CPU
+
+
+def test_single_buffer_differs_from_pipelined_mean_pass():
+    """The single-buffer pass is not the pipelined mean pass with every
+    pixel active: its f32 accumulation (which flushes, as the TPU's and
+    XLA-CPU's adds do) returns -0.0 and denormals as +0.0, channel 6 holds
+    the gathered zero instead of the flag, and on the 960-wide level the
+    half-padded last column tile places other row windows, because its
+    edge-replicated pad pixels take part."""
+    planes, r, c, _ = ts.scene("denormals")
+    out_s, mask_s = run_single(planes, r, c, plain=True)
+    out_p, mask_p = run_port(planes, r, c, None, "mean")
+    np.testing.assert_array_equal(mask_s, mask_p)  # 256 wide: no pad column
+    bits_s, bits_p = out_s.view(np.int32), out_p.view(np.int32)
+    tiny = lambda b: (b & 0x7F800000) == 0  # +-0.0 and denormals
+    assert (bits_p[:, 2:6][mask_p[:, None].repeat(4, 1)] == np.int32(-(2**31))).any()
+    assert (tiny(bits_p) & (bits_p != 0))[:, :6].any()  # the pipelined pass keeps them
+    np.testing.assert_array_equal(bits_s[tiny(bits_s)], 0)  # the single pass does not
+    same = ~tiny(bits_p)
+    np.testing.assert_array_equal(bits_s[:, :6][same[:, :6]], bits_p[:, :6][same[:, :6]])
+    assert (out_p[:, 6][mask_p] == 1.0).all() and (out_s[:, 6] == 0.0).all()
+
+    planes, r, c, _ = ts.wide_scene()
+    _, mask_s = run_single(planes, r, c, plain=True)
+    _, mask_p = run_port(planes, r, c, None, "mean")
+    cols = np.nonzero(mask_s != mask_p)[2]
+    assert cols.size > 100 and cols.min() >= 896  # only in the half-padded last tile
 
 
 @pytest.mark.parametrize("policy", ["mean", "min", "max"])
