@@ -28,9 +28,20 @@ undistort, stitch, register) — and checks them end to end:
      the route's kernel, the panorama stitched on the card equal to the CPU
      stitch but for at most 0.01% of its pixels, and the per-frame build
      and align times;
+  5c. the plane layer on the card against the port's CPU planes on frame 1
+     of that dataset: the refined labels' differing share, the plane count,
+     the largest normal and d deviations, for need_inliers True and False;
+  5d. the odometry app with --with-planes on the card (the default route):
+     all 5 pairs accepted within the ground-truth bound, as many successful
+     PbMap registrations as the port's planes give on the CPU (and at least
+     one), the L0-L2 sweeps carried by warp_gather_batched, and per frame
+     the synchronised times of the plane device program, the collect, the
+     host fit, the PbMap registration and the align;
   6. timing with CUDA events: warm align throughput on the default
      (windowed kernel) and the exact route, in alternating rounds, and each
-     kernel beside its plain version at the L0 shape.
+     kernel beside its plain version at the L0 shape, with its bound: the
+     bytes it must move (inputs read once, outputs written once) at the
+     H100 SXM's 3.35 TB/s; a gather does no arithmetic to bound it.
 
 Any failed check raises, and the script exits non-zero. The last line of
 its output is the JSON status line. Run from the repository root:
@@ -63,6 +74,17 @@ ROUTE_ROUNDS = 10
 TIMED_GATHERS = 20
 ODOMETRY_FRAMES = 6
 STITCH_DIFF_LIMIT = 1e-4  # share of panorama pixels: f32 sin/cos and truncation
+# the plane layer, card vs CPU: the segment-stage labels must be equal; the
+# refinement may absorb pixels differently where a region's plane fit is
+# ill-posed (a line-like region: its f32 normal is any direction across the
+# line, picked by ulps of acos/cos) or a pixel sits on the distance limit,
+# as between the port and JAX on the CPU (tests/test_torch_planes.py). The
+# share limit is 3x the 0.17% that frame 1 showed while the card's
+# per-label sums still used atomics.
+LABEL_DIFF_LIMIT = 5e-3  # share of the 8 x 120 x 160 refined label pixels
+PLANE_NORMAL_LIMIT = 1e-3
+PLANE_D_LIMIT = 5e-3  # metres
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 
 
 def card_line() -> str:
@@ -97,7 +119,7 @@ def _stage_ms(text: str, name: str) -> list:
     return [float(ms) for ms in re.findall(rf"^{re.escape(name)} took ([0-9.]+) ms$", text, re.M)]
 
 
-def odometry_phase(dev, card) -> dict:
+def odometry_phase(dev, card, calib_root, seq, gt) -> dict:
     """Phase 5b. Returns the launch counts of the single-buffer run."""
     from rgbd360_torch.apps import odometry
     from rgbd360_torch.core.frame360 import Frame360
@@ -108,12 +130,6 @@ def odometry_phase(dev, card) -> dict:
 
     build_stages = ("Frame360.loadFrame", "Frame360.undistort", "Frame360.stitchSphericalImage")
     with tempfile.TemporaryDirectory() as tmp:
-        calib_root, seq = os.path.join(tmp, "calib"), os.path.join(tmp, "seq")
-        t0 = time.perf_counter()
-        rts = rig.write_calib_root(calib_root)
-        gt = rig.write_sequence(seq, rts, frames=ODOMETRY_FRAMES)
-        print(f"odometry dataset: {ODOMETRY_FRAMES} frames written in {time.perf_counter() - t0:.2f} s", flush=True)
-
         # the panorama stitched on the card against the port's CPU stitch
         calib = Calib360.load(calib_root)
         frame_path = os.path.join(seq, "sphere_images_1.bin")
@@ -170,6 +186,145 @@ def odometry_phase(dev, card) -> dict:
             if not pipelined:
                 single_launches = launches
     return single_launches
+
+
+def planes_phase(dev, card, calib_root, seq) -> None:
+    """Phase 5c: the plane layer on the card against the port's CPU planes."""
+    from rgbd360_torch.core import plane_extraction
+    from rgbd360_torch.core.frame360 import Frame360
+    from rgbd360_torch.io.calib import Calib360
+
+    calib = Calib360.load(calib_root)
+    frame_path = os.path.join(seq, "sphere_images_1.bin")
+    on_card = Frame360(calib, 1, dev).build(frame_path)
+    on_cpu = Frame360(calib, 1, "cpu").build(frame_path)
+    (_x, _r, _n, pre_card, lab_card), (xyz2, _r2, _n2, pre_cpu, lab_cpu) = (
+        [t.cpu().numpy() for t in plane_extraction._sensor_clouds(f.depth_undistorted_m, f.rgb)]
+        for f in (on_card, on_cpu))
+    share = float((lab_card != lab_cpu).mean())
+    patches, unexplained = refine_differences(xyz2, pre_cpu, lab_card, lab_cpu)
+    print(f"planes of frame 1, card vs CPU: segment-stage labels differ at {int((pre_card != pre_cpu).sum())} pixels; "
+          f"refined labels at {share:.4%} of the pixels (limit {LABEL_DIFF_LIMIT:.2%}) in {patches} patches, "
+          f"{unexplained} of them unexplained by refine_differences' rule", flush=True)
+    if (pre_card != pre_cpu).any() or share > LABEL_DIFF_LIMIT or unexplained:
+        raise AssertionError("the card's plane labels differ from the CPU's beyond the refinement's ill-posed cases")
+    for need_inliers in (True, False):
+        card_pb, cpu_pb = on_card.get_planes(need_inliers), on_cpu.get_planes(need_inliers)
+        if len(card_pb) != len(cpu_pb) or len(cpu_pb) == 0:
+            raise AssertionError(f"need_inliers={need_inliers}: {len(card_pb)} planes on the card, {len(cpu_pb)} on the CPU")
+        dn = max(float(np.abs(a.normal - b.normal).max()) for a, b in zip(card_pb.planes, cpu_pb.planes))
+        dd = max(abs(a.d - b.d) for a, b in zip(card_pb.planes, cpu_pb.planes))
+        da = max(abs(a.area_hull - b.area_hull) / b.area_hull for a, b in zip(card_pb.planes, cpu_pb.planes))
+        print(f"[{card}] planes need_inliers={need_inliers}: {len(card_pb)} on the card = {len(cpu_pb)} on the CPU; "
+              f"largest deviation: normal {dn:.3g} (limit {PLANE_NORMAL_LIMIT}), d {dd:.3g} m (limit {PLANE_D_LIMIT}), "
+              f"hull area {da:.3g} relative", flush=True)
+        if dn > PLANE_NORMAL_LIMIT or dd > PLANE_D_LIMIT:
+            raise AssertionError(f"need_inliers={need_inliers}: the card's planes deviate from the CPU's")
+
+
+def refine_differences(xyz2, pre, lab_a, lab_b):
+    """(patches, unexplained): the 4-connected patches of pixels two
+    refinements of the same segment-stage labels ``pre`` label differently,
+    and how many of them hold no pixel that is unlabeled before the
+    refinement and, for one of the two regions it went to (or stayed out
+    of), either sits within 1e-3 m of the 0.02 m limit of the region's f64
+    least-squares plane or belongs to a region whose plane is ill-posed
+    (eigengap < 1e-3 of the largest eigenvalue: a line-like region, whose
+    f32 normal is any direction across the line, so it may or may not win
+    a contested pixel)."""
+    import scipy.ndimage
+
+    n_patches = unexplained = 0
+    for s in range(pre.shape[0]):
+        diff = lab_a[s] != lab_b[s]
+        if not diff.any():
+            continue
+        patches, n = scipy.ndimage.label(diff)
+        n_patches += n
+        explained = np.zeros(diff.shape, bool)
+        for r, c in np.argwhere(diff):
+            if pre[s, r, c] != -1:
+                continue  # not an absorption: unexplained
+            for region in {int(lab_a[s, r, c]), int(lab_b[s, r, c])} - {-1}:
+                pts = xyz2[s][pre[s] == region].astype(np.float64)
+                ctr = pts.mean(0)
+                w, vec = np.linalg.eigh((pts - ctr).T @ (pts - ctr) / len(pts))
+                res = abs(vec[:, 0] @ (xyz2[s, r, c].astype(np.float64) - ctr))
+                explained[r, c] |= w[1] - w[0] < 1e-3 * w[2] or abs(res - 0.02) <= 1e-3
+        unexplained += sum(not explained[patches == k].any() for k in range(1, n + 1))
+    return n_patches, unexplained
+
+
+def with_planes_phase(dev, card, calib_root, seq, gt) -> dict:
+    """Phase 5d: the odometry app with --with-planes on the card. Returns
+    the launch counts of the run."""
+    from rgbd360_torch.apps import odometry
+    from rgbd360_torch.apps.common import default_matcher_config
+    from rgbd360_torch.core.frame360 import Frame360
+    from rgbd360_torch.core.matcher import PLANAR_3DOF
+    from rgbd360_torch.core.register_rgbd360 import RegisterRGBD360
+    from rgbd360_torch.io.calib import Calib360
+    from rgbd360_torch.ops import photoicp, warp_gather
+    from rgbd360_torch.utils import timing
+    from tools import synthetic_rig as rig
+
+    # the port's PbMap registrations of the same pairs on the CPU
+    calib = Calib360.load(calib_root)
+    t0 = time.perf_counter()
+    cpu_frames = [Frame360(calib, n, "cpu").build(os.path.join(seq, f"sphere_images_{n}.bin"))
+                  for n in range(1, ODOMETRY_FRAMES + 1)]
+    for f in cpu_frames:
+        f.get_planes(need_inliers=False)
+    registerer = RegisterRGBD360(default_matcher_config(calib_root))
+    cpu_ok = sum(registerer.register_pbmap(a, b, 25, PLANAR_3DOF) for a, b in zip(cpu_frames, cpu_frames[1:]))
+    print(f"PbMap registration on the CPU: {cpu_ok} of {ODOMETRY_FRAMES - 1} pairs "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "out")
+        buf = io.StringIO()
+        try:
+            timing.stage_timing(True)
+            warp_gather.reset_launch_counts()
+            photoicp.reset_sweep_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = odometry.main([seq, "--calib-root", calib_root, "--out", out, "--with-planes", "--device", str(dev)])
+            torch.cuda.synchronize()
+            app_ms = (time.perf_counter() - t0) * 1000.0
+            launches, sweeps = dict(warp_gather.LAUNCHES), dict(photoicp.SWEEPS)
+        finally:
+            timing.stage_timing(False)
+        text = buf.getvalue()
+        traj = np.loadtxt(os.path.join(out, "trajectory.txt")).reshape(-1, 4, 4)
+    print("".join(line + "\n" for line in text.splitlines() if line.startswith(("frame ", "trajectory"))), end="")
+    errs = rig.relative_pose_errors(traj, gt)
+    card_ok = sum(" pbmap ok " in line for line in text.splitlines())
+    times = {name: np.round(_stage_ms(text, stage_name), 3).tolist() for name, stage_name in (
+        ("plane device program", "planes device program"), ("collect", "planes collect (sync)"),
+        ("host fit", "planes host fit"), ("PbMap registration", "PbMap registration"),
+        ("align", "Dense alignment 360"))}
+    print(f"[{card}] odometry --with-planes: {len(traj) - 1} of {ODOMETRY_FRAMES - 1} pairs accepted; "
+          f"PbMap registrations {card_ok} on the card, {cpu_ok} on the CPU; error vs ground truth max "
+          f"{errs[:, 0].max() * 1000:.3f} mm, {errs[:, 1].max():.4f} deg; per-frame ms, synchronised: "
+          + "; ".join(f"{k} {v} median {np.median(v):.3f}" for k, v in times.items())
+          + f"; the whole app {app_ms:.1f} ms", flush=True)
+    print(f"launches {launches} sweeps {sweeps}", flush=True)
+    if rc != 0 or len(traj) != ODOMETRY_FRAMES:
+        raise AssertionError(f"odometry --with-planes: rc {rc}, {len(traj) - 1} pairs accepted")
+    if not ((errs[:, 0] < rig.GT_T).all() and (errs[:, 1] < rig.GT_ROT_DEG).all()):
+        raise AssertionError(f"odometry --with-planes: relative poses outside the ground-truth bound: {errs}")
+    if card_ok != cpu_ok or cpu_ok == 0:
+        raise AssertionError(f"odometry --with-planes: {card_ok} PbMap registrations on the card, {cpu_ok} on the CPU")
+    if not (launches["warp_gather_batched"] == sweeps["windowed"] > 0 and launches["warp_gather_single"] == 0
+            and launches["warp_gather_batched_multi"] == sweeps["exact_final_dual"] == ODOMETRY_FRAMES - 1):
+        raise AssertionError(f"odometry --with-planes: the sweeps did not run through the kernels: {launches} vs {sweeps}")
+    return launches
+
+
+def gather_bound_ms(*tensors) -> float:
+    """Least time to move ``tensors`` once each through HBM, in ms."""
+    return sum(t.numel() * t.element_size() for t in tensors) / HBM_BYTES_PER_S * 1000.0
 
 
 def main() -> int:
@@ -319,8 +474,17 @@ def main() -> int:
     if not (facade_ok and np.isfinite(entropy)):
         raise AssertionError(f"facade result fails the rails: {reasons} entropy {entropy}")
 
-    # -- 5b. dense odometry over raw captures ----------------------------------
-    odometry_launches = odometry_phase(dev, card)
+    # -- 5b-5d. odometry over raw captures, the plane layer ----------------------
+    from tools import synthetic_rig as rig
+
+    with tempfile.TemporaryDirectory() as tmp:
+        calib_root, seq = os.path.join(tmp, "calib"), os.path.join(tmp, "seq")
+        t0 = time.perf_counter()
+        gt = rig.write_sequence(seq, rig.write_calib_root(calib_root), frames=ODOMETRY_FRAMES)
+        print(f"odometry dataset: {ODOMETRY_FRAMES} frames written in {time.perf_counter() - t0:.2f} s", flush=True)
+        odometry_launches = odometry_phase(dev, card, calib_root, seq, gt)
+        planes_phase(dev, card, calib_root, seq)
+        planes_launches = with_planes_phase(dev, card, calib_root, seq, gt)
 
     # -- 6. timing -------------------------------------------------------------------
     # The two routes alternate, each leading every other round, so drift of
@@ -371,18 +535,34 @@ def main() -> int:
     }
     # each kernel's launches in the run of the path it carries: the golden
     # align for the pipelined passes, the single-buffer odometry run for
-    # the _kernel pass
-    launches = dict(launches, warp_gather_single=odometry_launches["warp_gather_single"])
+    # the _kernel pass, and this slice's --with-planes odometry run for both
+    # pipelined passes (added to the golden align's)
+    launches = {
+        "warp_gather_batched": launches["warp_gather_batched"] + planes_launches["warp_gather_batched"],
+        "warp_gather_batched_multi": launches["warp_gather_batched_multi"] + planes_launches["warp_gather_batched_multi"],
+        "warp_gather_single": odometry_launches["warp_gather_single"],
+    }
+    operands = {
+        "warp_gather_batched": (planes, r2d, c2d),
+        "warp_gather_batched_multi": (planes, r2d, c2d, miss),
+        "warp_gather_single": (planes, r2d, c2d),
+    }
     kernels = []
     for name, (kernel_fn, plain_fn) in timing.items():
         # in turns: kernel, plain, plain, kernel
         k1, p1, p2, k2 = (cuda_ms(fn, TIMED_GATHERS) for fn in (kernel_fn, plain_fn, plain_fn, kernel_fn))
         ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        print(f"[{card}] {name} at L0 ({BATCH}, 320, 8, 1920): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+        out, mask = timing[name][0]()
+        bound_ms = gather_bound_ms(*operands[name], out, mask)
+        print(f"[{card}] {name} at L0 ({BATCH}, 320, 8, 1920): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms by bytes ({bound_ms / ms:.1%} of it reached)", flush=True)
         kernels.append({
             "name": name, "route": "cuda", "source": "rgbd360_torch/csrc/warp_gather.cu",
             "replaces": replaces[name], "launches": launches[name], "max_abs_err": max_err[name],
-            "ms": ms, "plain_ms": plain_ms,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            # no single PyTorch call computes the windowed gather with its
+            # coverage mask (planes[b, :, r, c] is the exact gather)
+            "library_ms": None,
         })
 
     print(json.dumps({"kernels": kernels}), flush=True)

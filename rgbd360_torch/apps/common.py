@@ -1,8 +1,8 @@
 """Shared CLI plumbing of the port's apps.
 
 Counterpart of rgbd360_tpu/apps/common.py. The calibration root has no
-built-in default here: pass it (--calib-root) or set RGBD360_REFERENCE.
-The matcher .ini of the PbMap apps comes with the plane layer.
+built-in default here: pass it (--calib-root) or set RGBD360_REFERENCE. The
+entry points run on the card unless a device is named (device.py).
 """
 
 from __future__ import annotations
@@ -16,11 +16,20 @@ from rgbd360_torch.io.calib import Calib360
 DEFAULT_DATA_ROOT = os.environ.get("RGBD360_REFERENCE")
 
 
-def load_calib(root: str = None) -> Calib360:
+def _root(root: str = None) -> str:
     root = root or DEFAULT_DATA_ROOT
     if root is None:
         raise ValueError("no calibration root: pass --calib-root or set RGBD360_REFERENCE")
-    return Calib360.load(root)
+    return root
+
+
+def load_calib(root: str = None) -> Calib360:
+    return Calib360.load(_root(root))
+
+
+def default_matcher_config(root: str = None) -> str:
+    """The PbMap matcher .ini of a data root (common.py:18)."""
+    return os.path.join(_root(root), "config_files", "configLocaliser_sphericalOdometry.ini")
 
 
 def rot_offset() -> np.ndarray:
@@ -45,23 +54,32 @@ def sequence_files(path: str, first: int, sample: int):
         n += sample
 
 
-def sequence_frames(calib, path: str, first: int, sample: int, device="cpu"):
-    """Yield (frame_number, built Frame360 on ``device``) over a dataset,
-    with disk IO + archive parsing of upcoming frames prefetched on native
-    C++ threads when the toolchain allows (io/native_loader.py), else read
-    by the Python reader. Each frame is undistorted and stitched; the JAX
-    function's defer_device mode feeds the fused frame program of the plane
-    layer and comes with it."""
+def sequence_frames(calib, path: str, first: int, sample: int, device=None, defer_device: bool = False):
+    """Yield (frame_number, Frame360 on ``device``, the card by default)
+    over a dataset, with disk IO + archive parsing of upcoming frames
+    prefetched on native C++ threads when the toolchain allows
+    (io/native_loader.py), else read by the Python reader.
+
+    defer_device=True yields raw-only frames (no undistort/stitch):
+    planes_pipeline then runs the whole per-frame device pipeline in one
+    call (Frame360.build_device_fused). Leave False for consumers that read
+    the panoramas without the planes pipeline."""
     from rgbd360_torch.core.frame360 import Frame360
     from rgbd360_torch.io.native_loader import iter_frames
     from rgbd360_torch.utils.timing import stage
 
     numbered = list(sequence_files(path, first, sample))
     raws = iter_frames([f for _, f in numbered])
-    for frame_no, f in numbered:
+    for frame_no, _f in numbered:
         frame = Frame360(calib, frame_no, device)
         with stage("Frame360.loadFrame", sync=frame._sync):
             frame.set_raw(next(raws))
-        frame.undistort()
-        frame.stitch_spherical_image()
+        if defer_device:
+            # explicit marker: planes_pipeline routes ONLY frames tagged here
+            # through the fused device pipeline; attribute sniffing would
+            # also match frames whose depth must not be CLAMS-undistorted
+            frame._deferred_build = True
+        else:
+            frame.undistort()
+            frame.stitch_spherical_image()
         yield frame_no, frame

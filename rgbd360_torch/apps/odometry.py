@@ -1,15 +1,17 @@
 """OdometryRGBD360 — frame-to-frame dense spherical odometry
-(reference Registration/OdometryRGBD360.cpp:75-297), dense mode.
+(reference Registration/OdometryRGBD360.cpp:75-297).
 
-Counterpart of rgbd360_tpu/apps/odometry.py without --with-planes: per
-frame, the dense Photo+Depth alignment (5 pyramid levels) against the
-previous frame, seeded with the previous relative pose; poses chained in the
-cloud frame through the 157.5 deg offset; a pair whose translation exceeds
-max_translation_odometry is rejected; trajectory saved. PbMap seeding
-(--with-planes) comes with the plane layer and exits with an error here.
+Counterpart of rgbd360_tpu/apps/odometry.py. Per frame, the dense
+Photo+Depth alignment (5 pyramid levels) against the previous frame, seeded
+with the previous relative pose or, with --with-planes, with the PbMap
+registration (PLANAR_3DOF, up to 25 planes) of the two frames' planes
+through the 157.5 deg offset; poses chained in the cloud frame; a pair
+whose translation exceeds max_translation_odometry is rejected; trajectory
+saved. Runs on the card unless --device names another device.
 
 Usage: python -m rgbd360_torch.apps.odometry <dataset_dir> [--first 1]
-       [--sample 1] [--out DIR] [--calib-root DIR] [--device cpu|cuda]
+       [--sample 1] [--out DIR] [--calib-root DIR] [--with-planes]
+       [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -21,9 +23,12 @@ import time
 
 import numpy as np
 
-from rgbd360_torch.apps.common import load_calib, rot_offset, sequence_frames
+from rgbd360_torch.apps.common import default_matcher_config, load_calib, rot_offset, sequence_frames
 from rgbd360_torch.config import default_params
+from rgbd360_torch.core.matcher import PLANAR_3DOF
 from rgbd360_torch.core.register_photoicp import PHOTO_DEPTH, RegisterPhotoICP
+from rgbd360_torch.core.register_rgbd360 import RegisterRGBD360
+from rgbd360_torch.utils.timing import stage
 from rgbd360_torch.utils.viz import save_trajectory
 
 
@@ -34,15 +39,13 @@ def main(argv=None) -> int:
     ap.add_argument("--sample", type=int, default=1)
     ap.add_argument("--out", default=None)
     ap.add_argument("--calib-root", default=None)
-    ap.add_argument("--device", default="cpu", help="torch device of the frames and the aligner")
+    ap.add_argument("--device", default="cuda", help="torch device of the frames and the aligner")
     ap.add_argument("--with-planes", action="store_true",
                     help="run PbMap registration to seed the dense aligner")
     args = ap.parse_args(argv)
-    if args.with_planes:
-        ap.error("--with-planes needs PbMap registration, which is not ported yet "
-                 "(ROADMAP queue 1, slices 3-4: the plane layer and PbMap registration)")
 
     calib = load_calib(args.calib_root)
+    registerer = RegisterRGBD360(default_matcher_config(args.calib_root))
     aligner = RegisterPhotoICP(n_pyr_levels=5, device=args.device)
     off = rot_offset()
 
@@ -53,14 +56,24 @@ def main(argv=None) -> int:
 
     for frame_no, frame in sequence_frames(calib, args.dataset, args.first, args.sample, args.device):
         t0 = time.time()
+        if args.with_planes:
+            frame.get_planes(need_inliers=False)
         if prev is None:
             prev = frame
             print(f"frame {frame_no}: reference")
             continue
 
+        guess = rel_dense
+        pbmap_ok = False
+        if args.with_planes and prev.planes is not None:
+            with stage("PbMap registration"):
+                pbmap_ok = registerer.register_pbmap(prev, frame, 25, PLANAR_3DOF)
+            if pbmap_ok:
+                guess = off @ registerer.get_pose().astype(np.float64) @ np.linalg.inv(off)
+
         aligner.set_target_frame(prev.sphere_rgb, prev.sphere_depth_mm)
         aligner.set_source_frame(frame.sphere_rgb, frame.sphere_depth_mm)
-        aligner.align_frames360(rel_dense.astype(np.float32), PHOTO_DEPTH)
+        aligner.align_frames360(guess.astype(np.float32), PHOTO_DEPTH)
         rel_sphere = aligner.get_optimal_pose().astype(np.float64)
         rel_cloud = np.linalg.inv(off) @ rel_sphere @ off
         rel_dense = rel_sphere  # seed for the next pair (reference :192)
@@ -77,9 +90,11 @@ def main(argv=None) -> int:
 
         current_pose = current_pose @ rel_cloud
         trajectory.append(current_pose.copy())
+        planes = (f" planes {len(prev.planes)}/{len(frame.planes)} pbmap {'ok' if pbmap_ok else 'no'}"
+                  if args.with_planes else "")
         print(
             f"frame {frame_no}: |t|={np.linalg.norm(rel_cloud[:3,3]):.4f} "
-            f"avDepth={aligner.av_depth_residual:.3f} SSO={aligner.sso:.3f} "
+            f"avDepth={aligner.av_depth_residual:.3f} SSO={aligner.sso:.3f}{planes} "
             f"({time.time()-t0:.2f}s)"
         )
         prev = frame

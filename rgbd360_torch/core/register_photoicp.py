@@ -9,7 +9,7 @@ cache keyed by array identity (register_photoicp.py:22-66).
 
 Frames are (H, W, 3) u8 BGR plus (H, W) depth, u16 millimetres or f32
 metres, as torch tensors or numpy arrays. Tensors stay on their device;
-numpy arrays go to the facade's ``device`` (the CPU unless given). The
+numpy arrays go to the facade's ``device`` (the card unless given). The
 facade runs one pair (the port's ops carry a pair axis of size 1 here).
 
 Not ported: ``prewarm`` (a compile warm-up of the JAX package; it comes
@@ -25,6 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from rgbd360_torch.device import resolve_device
 from rgbd360_torch.ops import photoicp
 from rgbd360_torch.utils.timing import stage
 
@@ -52,7 +53,7 @@ class RegisterPhotoICP:
 
     def __init__(self, n_pyr_levels: int = 4, device=None):
         self.n_pyr_levels = n_pyr_levels
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = resolve_device(device)
         self.min_depth = photoicp.MIN_DEPTH
         self.max_depth = photoicp.MAX_DEPTH
         self._src = None

@@ -157,3 +157,36 @@ def test_single_buffer_kernel_bit_exact_vs_plain(cuda, monkeypatch):
         monkeypatch.setattr(tw, "PIPELINE_KERNEL", True)
         assert tw.LAUNCHES["warp_gather_single"] == before + 2
         assert_bit_exact(routed, got)
+
+
+@pytest.mark.cuda
+def test_plane_bin_sums_on_the_card_equal_the_cpu_run_after_run(cuda):
+    """The plane layer's per-label sums (ops/planes_seg.py::_bin_sum) add in
+    index order on the card too: bit-equal to the CPU's, every run."""
+    from rgbd360_torch.ops.planes_seg import _bin_sum
+
+    rng = np.random.default_rng(5)
+    bins = torch.from_numpy(rng.integers(0, 65, (8, 19200)))
+    vals = torch.from_numpy((rng.normal(size=(8, 19200, 4)) * 3).astype(np.float32))
+    want = _bin_sum(bins, vals, 65)
+    for _ in range(3):
+        assert torch.equal(_bin_sum(bins.to(cuda), vals.to(cuda), 65).cpu(), want)
+
+
+@pytest.mark.cuda
+def test_plane_stats_buffer_reaches_the_host_through_the_event(cuda):
+    """plane_extraction.HostCopy: a non-blocking copy into pinned memory,
+    waited on through its CUDA event, from another thread too."""
+    import threading
+
+    from rgbd360_torch.core.plane_extraction import HostCopy
+
+    buf = torch.arange(770_000, device=cuda).to(torch.uint8)
+    copy = HostCopy(buf)
+    assert copy._host.is_pinned()
+    got = {}
+    th = threading.Thread(target=lambda: got.setdefault("host", copy.result()))
+    th.start()
+    th.join(timeout=60)
+    assert not th.is_alive()
+    np.testing.assert_array_equal(got["host"], buf.cpu().numpy())

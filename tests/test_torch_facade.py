@@ -31,8 +31,8 @@ def frames():
     return bgr("src"), g["depth_src_mm"], bgr("trg"), g["depth_trg_mm"]
 
 
-def _run(cls, frames, **align_kw):
-    reg = cls()
+def _run(make, frames, **align_kw):
+    reg = make()
     reg.set_source_frame(frames[0], frames[1])
     reg.set_target_frame(frames[2], frames[3])
     pose = reg.align_frames360(**align_kw)
@@ -42,7 +42,7 @@ def _run(cls, frames, **align_kw):
 def test_facade_matches_jax_facade(frames):
     """Default facade (4 levels, PHOTO_CONSISTENCY) on both packages: same
     basin, finite entropy, accessors of equal shapes and dtypes."""
-    reg_t, pose_t = _run(TorchRegister, frames)
+    reg_t, pose_t = _run(lambda: TorchRegister(device="cpu"), frames)
     reg_j, pose_j = _run(JaxRegister, frames)
     assert reg_t.n_pyr_levels == reg_j.n_pyr_levels == 4
     dt = np.linalg.norm(pose_t[:3, 3] - pose_j[:3, 3])
@@ -67,7 +67,7 @@ def test_facade_matches_jax_facade(frames):
 def test_facade_equals_align_batch_on_the_same_pair(frames):
     """The facade is align_batch for one pair: PHOTO_DEPTH, 5 levels, the
     same pose bits and iteration signature."""
-    reg = TorchRegister(n_pyr_levels=5)
+    reg = TorchRegister(n_pyr_levels=5, device="cpu")
     reg.set_source_frame(frames[0], frames[1])
     reg.set_target_frame(frames[2], frames[3])
     pose = reg.align_frames360(method=tp.PHOTO_DEPTH)
@@ -86,7 +86,7 @@ def test_facade_equals_align_batch_on_the_same_pair(frames):
 
 
 def test_pyramid_cache_is_lru_by_identity(frames):
-    reg = TorchRegister()
+    reg = TorchRegister(device="cpu")
     reg.set_target_frame(frames[2], frames[3])
     first = reg._trg
     reg.set_target_frame(frames[2], frames[3])
@@ -100,7 +100,7 @@ def test_pyramid_cache_is_lru_by_identity(frames):
     reg.set_target_frame(frames[2], frames[3])
     assert reg._trg is first  # LRU: the hot entry survived the evictions
     with pytest.raises(RuntimeError):
-        TorchRegister().get_optimal_pose()
+        TorchRegister(device="cpu").get_optimal_pose()
 
 
 def test_port_imports_without_jax():
@@ -121,6 +121,7 @@ def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     names = set(proc.stdout.split())
-    assert len(names) >= 32  # ops (9), io (4), core (3), apps (2), utils (2), ...
-    for n in ("io.native_loader", "core.frame360", "apps.odometry", "ops.stitch", "ops.undistort"):
+    assert len(names) >= 41  # ops (14), io (5), core (7), apps (2), utils (2), ...
+    for n in ("io.native_loader", "core.frame360", "apps.odometry", "ops.stitch", "ops.undistort",
+              "core.plane_extraction", "core.register_rgbd360", "ops.planes_seg", "io.ini"):
         assert f"rgbd360_torch.{n}" in names

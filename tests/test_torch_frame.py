@@ -57,7 +57,7 @@ POSES = [rig.loop_pose(theta, 0.8) for theta in (0.0, 2.1, 4.3)]
 @pytest.fixture(scope="module")
 def calib_root(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("calib"))
-    rig.write_calib_root(root, seed=7)
+    rig.write_calib_root(root, seed=7, spread=0.05)  # multipliers that visibly act
     return root
 
 
@@ -232,7 +232,7 @@ def test_frame360_build_matches_jax_frame360(calibs, captures, tmp_path):
     tc, jc = calibs
     path = str(tmp_path / "sphere_images_1.bin")
     t_bin.write_frame360_bin(path, captures[2])
-    ft, fj = TFrame(tc, 1).build(path), JFrame(jc, 1).build(path)
+    ft, fj = TFrame(tc, 1, "cpu").build(path), JFrame(jc, 1).build(path)
     assert ft.rgb.device.type == "cpu" and ft.depth_raw_mm.dtype == torch.uint16
     np.testing.assert_array_equal(ft.depth_undistorted_m.numpy(), np.asarray(fj.depth_undistorted_m))
     diff = (ft.sphere_rgb.numpy() != np.asarray(fj.sphere_rgb)).any(-1) | (ft.sphere_depth_mm.numpy() != np.asarray(fj.sphere_depth_mm))
@@ -250,9 +250,16 @@ def test_frame360_build_matches_jax_frame360(calibs, captures, tmp_path):
     with open(out, "rb") as a, open(path, "rb") as b:
         assert a.read() == b.read()
     # the lazy metric depth before undistort is the plain mm -> m conversion
-    raw_only = TFrame(tc, 2)
+    raw_only = TFrame(tc, 2, "cpu")
     raw_only.set_raw(captures[2])
     np.testing.assert_array_equal(raw_only.depth_undistorted_m.numpy(), captures[2].depth.astype(np.float32) * np.float32(0.001))
-    for call in (ft.get_planes, ft.build_device_fused, ft.build_sphere_cloud, lambda: ft.save(str(tmp_path), 1)):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            call()
+    # the plane half (tests/test_torch_planes.py holds it against JAX) runs
+    # on the same frame: planes, the fused device program, the keyframe
+    assert ft.get_planes(need_inliers=False) is ft.planes
+    stats = TFrame(tc, 3, "cpu")
+    stats.set_raw(t_bin.read_frame360_bin(path))
+    assert stats.build_device_fused().dtype == torch.uint8
+    np.testing.assert_array_equal(stats.sphere_depth_mm.numpy(), ft.sphere_depth_mm.numpy())
+    assert ft.build_sphere_cloud()[0].shape == (8 * 120 * 160, 3)
+    ft.save(str(tmp_path), 1)
+    assert TFrame.load_keyframe(tc, str(tmp_path), 1, "cpu").planes is not None

@@ -7,6 +7,9 @@ Writes what a real dataset holds, in the reference's file formats:
   <root>/Calibration/Intrinsics/distortion_modelN
                                              a seeded CLAMS v01 model per
                                              sensor, multipliers != 1
+  <root>/config_files/configLocaliser_sphericalOdometry.ini
+                                             the PbMap matcher .ini, empty:
+                                             MatcherConfig's defaults
   <dataset>/sphere_images_N.bin              8-sensor captures of a textured
                                              box room with two pillars,
                                              ray-cast through the rig along
@@ -46,6 +49,14 @@ from rgbd360_torch.io.clams import MAGIC, DepthDistortionModel  # noqa: E402
 # 0.202 deg on its 5 pairs (CPU), the port the same to 1e-5 m
 GT_T = 0.010  # metres
 GT_ROT_DEG = 0.3
+
+# Spread of the multipliers of the calibration roots write_calib_root
+# makes: within +-0.2% of 1 per bin, the walls, floor, ceiling and pillars
+# of the room stay planes to the plane layer (about 12 per frame). At +-5%
+# the bin-to-bin depth steps make the normals' depth-change test reject
+# most pixels, and no plane survives.
+PLANAR_SPREAD = 0.002
+MATCHER_INI = os.path.join("config_files", "configLocaliser_sphericalOdometry.ini")
 
 # tests/room_scene.py:11: asymmetric walls, so no 90-degree symmetry
 DEFAULT_BOX = (-1.5, 1.5, -2.2, 3.4, -3.0, 2.4)
@@ -130,15 +141,15 @@ def raycast_room_sensor(rt, w=320, h=240, box=DEFAULT_BOX, obstacles=()):
     return rgb, depth_mm
 
 
-def synthetic_clams_model(seed: int, bins_xy=(80, 80), n_depth: int = 5) -> DepthDistortionModel:
+def synthetic_clams_model(seed: int, bins_xy=(80, 80), n_depth: int = 5, spread: float = 0.05) -> DepthDistortionModel:
     """A VGA CLAMS model with the shipped geometry (8x6-pixel bins, 2 m
-    depth bins) and seeded multipliers drawn from [0.95, 1.05]. Its
+    depth bins) and seeded multipliers drawn from [1 - spread, 1 + spread]. Its
     counts are 0, 20, 80 or 500 per bin, so some bracketing depth-bin pairs
     fall under the 50-count minimum: undistort takes the nearest-bin branch
     there and interpolates elsewhere."""
     rng = np.random.default_rng(seed)
     by, bx = bins_xy[1], bins_xy[0]
-    mults = rng.uniform(0.95, 1.05, (by, bx, n_depth)).astype(np.float32)
+    mults = rng.uniform(1.0 - spread, 1.0 + spread, (by, bx, n_depth)).astype(np.float32)
     counts = rng.choice(np.array([0.0, 20.0, 80.0, 500.0], np.float32), size=(by, bx, n_depth), p=[0.1, 0.1, 0.2, 0.6])
     return DepthDistortionModel(
         width=640, height=480, bin_width=8, bin_height=6, bin_depth=2.0,
@@ -171,9 +182,10 @@ def write_clams_model(path: str, model: DepthDistortionModel) -> None:
         f.write(bytes(out))
 
 
-def write_calib_root(root: str, seed: int = 0) -> np.ndarray:
+def write_calib_root(root: str, seed: int = 0, spread: float = PLANAR_SPREAD) -> np.ndarray:
     """Calibration/{Extrinsics,Intrinsics} of the construction-spec rig
-    under ``root``. Returns the (8, 4, 4) extrinsics."""
+    (CLAMS multipliers within 1 +- ``spread``) and the matcher .ini under
+    ``root``. Returns the (8, 4, 4) extrinsics."""
     rts = construction_specs()
     ext = os.path.join(root, "Calibration", "Extrinsics")
     intr = os.path.join(root, "Calibration", "Intrinsics")
@@ -181,7 +193,9 @@ def write_calib_root(root: str, seed: int = 0) -> np.ndarray:
     os.makedirs(intr, exist_ok=True)
     for s in range(8):
         np.savetxt(os.path.join(ext, f"Rt_0{s + 1}.txt"), rts[s])
-        write_clams_model(os.path.join(intr, f"distortion_model{s + 1}"), synthetic_clams_model(seed + s))
+        write_clams_model(os.path.join(intr, f"distortion_model{s + 1}"), synthetic_clams_model(seed + s, spread=spread))
+    os.makedirs(os.path.join(root, "config_files"), exist_ok=True)
+    open(os.path.join(root, MATCHER_INI), "w").close()
     return rts
 
 
