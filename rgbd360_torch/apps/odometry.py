@@ -9,6 +9,13 @@ through the 157.5 deg offset; poses chained in the cloud frame; a pair
 whose translation exceeds max_translation_odometry is rejected; trajectory
 saved. Runs on the card unless --device names another device.
 
+With --with-planes the frames' planes come from planes_pipeline
+(core/plane_extraction.py) over raw frames: each frame's device program
+(undistort, stitch and plane statistics in one call) is dispatched before
+the previous frame's planes are fitted on a worker thread, so the host fit
+overlaps the next pair's work. The planes are those of get_planes(
+need_inliers=False), which the JAX app calls frame by frame.
+
 Usage: python -m rgbd360_torch.apps.odometry <dataset_dir> [--first 1]
        [--sample 1] [--out DIR] [--calib-root DIR] [--with-planes]
        [--device cuda|cpu]
@@ -26,6 +33,7 @@ import numpy as np
 from rgbd360_torch.apps.common import default_matcher_config, load_calib, rot_offset, sequence_frames
 from rgbd360_torch.config import default_params
 from rgbd360_torch.core.matcher import PLANAR_3DOF
+from rgbd360_torch.core.plane_extraction import planes_pipeline
 from rgbd360_torch.core.register_photoicp import PHOTO_DEPTH, RegisterPhotoICP
 from rgbd360_torch.core.register_rgbd360 import RegisterRGBD360
 from rgbd360_torch.utils.timing import stage
@@ -54,10 +62,11 @@ def main(argv=None) -> int:
     prev = None
     rel_dense = np.eye(4, dtype=np.float64)
 
-    for frame_no, frame in sequence_frames(calib, args.dataset, args.first, args.sample, args.device):
+    frames = sequence_frames(calib, args.dataset, args.first, args.sample, args.device, defer_device=args.with_planes)
+    if args.with_planes:
+        frames = planes_pipeline(frames, need_inliers=False)
+    for frame_no, frame in frames:
         t0 = time.time()
-        if args.with_planes:
-            frame.get_planes(need_inliers=False)
         if prev is None:
             prev = frame
             print(f"frame {frame_no}: reference")
