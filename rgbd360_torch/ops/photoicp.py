@@ -67,8 +67,13 @@ THRES_DEPTH_OUTLIERS = 0.3  # photoicp.py:600 (alignFrames360 sets it for Occ2, 
 WARP_KERNEL_MIN_PIXELS = 30_000
 
 # Batched sweeps per branch since the last reset_sweep_counts(): lets a run
-# check that every windowed sweep launched the kernel (chip_smoke.py)
-SWEEPS = {"windowed": 0, "exact": 0, "exact_final_dual": 0}
+# check that every windowed sweep launched its kernel (chip_smoke.py).
+# "windowed": single-anchor windowed sweeps (warp_gather_batched);
+# "full_coverage": triple-anchored windowed sweeps (warp_gather_batched_multi
+# with FULL: the full-coverage loop-closure sweeps and the occluded
+# exact-final); "exact_final_dual": the dual-anchored exact-final re-gathers
+# (warp_gather_batched_multi with DUAL); "exact": exact-gather sweeps.
+SWEEPS = {"windowed": 0, "full_coverage": 0, "exact": 0, "exact_final_dual": 0}
 
 
 def reset_sweep_counts() -> None:
@@ -349,7 +354,7 @@ def fused_sweep_sphere(
     p, dist, visible, rc, cc = _project_indices(xyz, valid, pose, h, w)
 
     if windowed:
-        SWEEPS["windowed"] += 1
+        SWEEPS["full_coverage" if two_pass else "windowed"] += 1
         r2d, c2d, vis2d = _kernel_coords(visible, rc, cc, h, w)
         if two_pass:
             planes_out, in_window = warp_gather.warp_gather_batched_multi(

@@ -1,16 +1,67 @@
 """Artifact output of the apps and keyframes.
 
-Copies of ``save_trajectory``, ``save_pcd`` and ``load_pcd`` from
-rgbd360_tpu/utils/viz.py (numpy only; the PCD files are the same format in
-both packages). The PNG/PLY writers and viewers of that module come with the
-periphery (ROADMAP queue 1, slice 7).
+Copies of the writers of rgbd360_tpu/utils/viz.py (numpy only; the PCD,
+PLY and PNG files are the same in both packages): ``save_png``,
+``depth_to_u8``, ``save_sphere_images``, ``save_ply``, ``save_pcd``,
+``load_pcd`` and ``save_trajectory``. A frame's panorama is read back from
+its device first.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
+
+
+def host_array(x) -> np.ndarray:
+    """A tensor (on any device) or array as numpy."""
+    return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+
+def save_png(path: str, img: np.ndarray) -> None:
+    from PIL import Image
+
+    img = np.asarray(img)
+    if img.ndim == 3 and img.shape[2] == 3:
+        Image.fromarray(img.astype(np.uint8)).save(path)
+    else:
+        Image.fromarray(img.astype(np.uint8), mode="L").save(path)
+
+
+def depth_to_u8(depth_mm: np.ndarray, max_mm: float = 6000.0) -> np.ndarray:
+    return (np.clip(np.asarray(depth_mm, np.float32) / max_mm, 0, 1) * 255).astype(np.uint8)
+
+
+def save_sphere_images(frame, out_dir: str, tag: str) -> None:
+    """rgb_<tag>.png + depth_<tag>.png like the reference's SAVE_IMAGES path
+    (Registration/OdometryRGBD360.cpp:157-163)."""
+    os.makedirs(out_dir, exist_ok=True)
+    rgb = host_array(frame.sphere_rgb)[..., ::-1]  # BGR -> RGB for PNG
+    save_png(os.path.join(out_dir, f"rgb_{tag}.png"), rgb)
+    save_png(os.path.join(out_dir, f"depth_{tag}.png"), depth_to_u8(host_array(frame.sphere_depth_mm)))
+
+
+def save_ply(path: str, xyz: np.ndarray, rgb: Optional[np.ndarray] = None) -> None:
+    """ASCII PLY point cloud (finite points only)."""
+    xyz = np.asarray(xyz).reshape(-1, 3)
+    keep = np.isfinite(xyz).all(axis=1)
+    xyz = xyz[keep]
+    colors = None
+    if rgb is not None:
+        colors = np.asarray(rgb).reshape(-1, 3)[keep].astype(np.uint8)
+    with open(path, "w") as f:
+        f.write("ply\nformat ascii 1.0\n")
+        f.write(f"element vertex {len(xyz)}\n")
+        f.write("property float x\nproperty float y\nproperty float z\n")
+        if colors is not None:
+            f.write("property uchar red\nproperty uchar green\nproperty uchar blue\n")
+        f.write("end_header\n")
+        if colors is not None:
+            np.savetxt(f, np.concatenate([xyz, colors], axis=1), fmt="%.4f %.4f %.4f %d %d %d")
+        else:
+            np.savetxt(f, xyz, fmt="%.4f")
 
 
 def save_pcd(path: str, xyz: np.ndarray, rgb: Optional[np.ndarray] = None,

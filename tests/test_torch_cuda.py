@@ -190,3 +190,64 @@ def test_plane_stats_buffer_reaches_the_host_through_the_event(cuda):
     th.join(timeout=60)
     assert not th.is_alive()
     np.testing.assert_array_equal(got["host"], buf.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_batch_match_prefilter_on_the_card_equals_the_cpu(cuda):
+    """core/batch_match.py: the compatibility matrices on the card (f32,
+    TF32 off) equal the CPU's, and so do the prefilter's counts and areas."""
+    from rgbd360_torch.core import batch_match as bm
+    from rgbd360_torch.core.matcher import DEFAULT_6DOF, ODOMETRY_6DOF, PLANAR_3DOF, PLANAR_ODOMETRY_3DOF, MatcherConfig
+    from rgbd360_torch.core.pbmap import PbMap, Plane, rgb_to_hue_hist
+
+    rng = np.random.default_rng(12)
+
+    def pbmap(n):
+        planes = []
+        for i in range(n):
+            normal = rng.normal(size=3)
+            p = Plane(id=i, normal=normal / np.linalg.norm(normal), center=rng.uniform(-3, 3, 3),
+                      area_hull=float(rng.uniform(0.3, 9.0)), elongation=float(rng.uniform(1, 4)))
+            p.d = float(-p.normal @ p.center)
+            p.hist_h = rgb_to_hue_hist(rng.integers(0, 256, (40, 3), dtype=np.uint8))
+            planes.append(p)
+        return PbMap(planes)
+
+    frame, cands = pbmap(25), [pbmap(n) for n in (4, 25, 60, 12)]
+    cfg = MatcherConfig()
+    for mode in (DEFAULT_6DOF, PLANAR_3DOF, ODOMETRY_6DOF, PLANAR_ODOMETRY_3DOF):
+        packs = [bm.pack_pbmap(c) for c in cands]
+        on_card = bm.compat_matrices(*bm.upload_packs(bm.pack_pbmap(frame), packs, cuda), bm.config_tuple(cfg), mode)
+        on_cpu = bm.compat_matrices(*bm.upload_packs(bm.pack_pbmap(frame), packs, "cpu"), bm.config_tuple(cfg), mode)
+        assert on_card.device.type == "cuda" and torch.equal(on_card.cpu(), on_cpu)
+        counts_g, areas_g = bm.prefilter_candidates(frame, cands, cfg, mode, device=cuda)
+        counts_c, areas_c = bm.prefilter_candidates(frame, cands, cfg, mode, device="cpu")
+        np.testing.assert_array_equal(counts_g, counts_c)
+        np.testing.assert_array_equal(areas_g, areas_c)
+
+
+@pytest.mark.cuda
+def test_full_coverage_align_batch_launches_equal_its_sweeps(cuda):
+    """align_batch(full_coverage=True) at B=2 (the loop closer's batched
+    refinement) on the golden pair: every windowed sweep launches the FULL
+    form of the kernel, once, and nothing else launches."""
+    import os
+
+    from rgbd360_torch.ops import photoicp
+    from rgbd360_torch.parallel.batch import align_batch
+
+    golden = np.load(os.path.join(os.path.dirname(__file__), "golden", "pair_1_10.npz"))
+    img = lambda key, scale: torch.from_numpy(
+        np.stack([golden[key].astype(np.float32) * scale] * 2)).to(cuda)
+    tw.reset_launch_counts()
+    photoicp.reset_sweep_counts()
+    res = align_batch(img("gray_src_u8", 1 / 255.0), img("depth_src_mm", 0.001), img("gray_trg_u8", 1 / 255.0),
+                      img("depth_trg_mm", 0.001), torch.eye(4, device=cuda).expand(2, 4, 4).contiguous(),
+                      photoicp.PHOTO_DEPTH, 5, full_coverage=True)
+    torch.cuda.synchronize()
+    assert photoicp.SWEEPS["full_coverage"] > 0
+    assert tw.LAUNCHES["warp_gather_batched_multi"] == photoicp.SWEEPS["full_coverage"]
+    assert tw.LAUNCHES["warp_gather_batched"] == tw.LAUNCHES["warp_gather_single"] == 0
+    assert photoicp.SWEEPS["windowed"] == photoicp.SWEEPS["exact_final_dual"] == 0
+    assert torch.isfinite(res.pose).all() and not bool(res.ill_posed.any())
+    assert float((res.pose[0] - res.pose[1]).abs().max()) <= 1e-6

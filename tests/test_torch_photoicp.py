@@ -408,7 +408,7 @@ def test_full_coverage_windowed_route_agrees_with_exact_route(golden, windowed_r
     src, trg = _half_res_pyramids(golden, [("src", "trg")])
     tp.reset_sweep_counts()
     res_w = tp.align_frames360(src, trg, torch.eye(4)[None], tp.PHOTO_DEPTH, full_coverage=True)
-    assert tp.SWEEPS["windowed"] > 0 and tp.SWEEPS["exact_final_dual"] == 0
+    assert tp.SWEEPS["full_coverage"] > 0 and tp.SWEEPS["windowed"] == tp.SWEEPS["exact_final_dual"] == 0
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tp, "_use_warp_kernel", lambda shape, device: False)
         res_e = tp.align_frames360(src, trg, torch.eye(4)[None], tp.PHOTO_DEPTH)
@@ -462,7 +462,7 @@ def test_single_buffer_route_full_resolution_passes_kernel_path_rails(golden, wi
     assert ok, reasons
     assert tuple(res.num_iterations[0].tolist()) == (0, 7, 10, 10, 10)
     assert abs(float(res.error[0]) - 2.393919) < 0.05
-    assert tp.SWEEPS == {"windowed": 33, "exact": 11, "exact_final_dual": 1}
+    assert tp.SWEEPS == {"windowed": 33, "full_coverage": 0, "exact": 11, "exact_final_dual": 1}
 
 
 def test_windowed_route_full_resolution_passes_kernel_path_rails(golden, windowed_route):
@@ -481,4 +481,4 @@ def test_windowed_route_full_resolution_passes_kernel_path_rails(golden, windowe
     assert ok, reasons
     # L0-L2 sweep windowed: 10 accepted steps + the initial sweep each; the
     # coarse levels sweep exactly; one dual pass for the exact-final stats
-    assert tp.SWEEPS == {"windowed": 33, "exact": 11, "exact_final_dual": 1}
+    assert tp.SWEEPS == {"windowed": 33, "full_coverage": 0, "exact": 11, "exact_final_dual": 1}

@@ -237,8 +237,9 @@ def test_refine_differences_explains_each_pixel(stages):
 
 
 # frames 1-4: on frames 5 and 6 a few segment-stage labels differ through
-# the chain too (2 and 1 pixels); test_get_planes_on_every_frame bounds
-# their effect on the planes
+# the chain too (2 and 1 pixels), each an edge on the distance threshold
+# (test_chain_segment_labels_differ_only_on_the_distance_threshold);
+# test_get_planes_on_every_frame bounds their effect on the planes
 @pytest.mark.parametrize("n", range(1, 5))
 def test_labels_through_the_whole_chain(dataset, calibs, n):
     ft, fj = _frames(dataset, calibs, n)
@@ -541,3 +542,80 @@ def test_entry_points_default_to_the_card(dataset, calibs, monkeypatch):
     assert t_frame.Frame360(calibs[0]).device == torch.device("cuda", 0)
     assert RegisterPhotoICP().device == torch.device("cuda", 0)
     assert t_frame.Frame360(calibs[0], 0, "cpu").device.type == "cpu"
+
+
+# Segment-stage labels through the whole chain (depth -> labels), port
+# against JAX, on the 6-frame sequence: pixels that differ, per frame
+CHAIN_LABEL_DIFFERENCES = {1: 0, 2: 0, 3: 0, 4: 0, 5: 2, 6: 1}
+
+
+@jax.jit
+def _jax_chain_to_segments(depth, rgb):
+    """JAX's build_sensor_clouds up to the segment stage, with its labels
+    (the jitted function returns only the refined ones)."""
+
+    def one(d, r):
+        xyz2, _rgb2 = j_pin.downsample_median2(j_pin.backproject_organized(d), r)
+        xyz2 = jnp.concatenate([xyz2[..., :2], j_bil.fast_bilateral_z(xyz2[..., 2])[..., None]], axis=-1)
+        normals = j_nrm.organized_normals(xyz2)
+        return xyz2, normals, j_seg.segment_planes(xyz2, normals)
+
+    return V(one)(depth, rgb)
+
+
+@pytest.mark.parametrize("n", range(1, FRAMES + 1))
+def test_chain_segment_labels_differ_only_on_the_distance_threshold(dataset, calibs, n):
+    """Where the segment-stage labels of the whole chain differ, port against
+    JAX (frames 5 and 6: 2 and 1 pixels), one 4-connected edge decides it,
+    and its predicate |d_a - d_b| < DISTANCE_THRESHOLD sits on the threshold:
+    on one side in the port, on the other in JAX, each within 0.1 mm of
+    0.02 m. The angle predicate of that edge agrees. The segmentation itself
+    has no arithmetic difference: JAX's segment_planes on the port's clouds
+    and normals gives the port's labels on every frame. The operands differ
+    because the bilateral-filtered depth differs by a few ulps (its splat's
+    matmul sums in torch's order, not XLA's dot's: test_bilateral_within_
+    ulps_of_jax), which the normals' box sums carry to ~1e-4.
+
+    Measured, margins |d_a - d_b| - 0.02 in metres (port / JAX):
+      frame 5, sensor 0 (5, 29) - (4, 29): -1.86e-08 / +1.41e-06 (the port
+        connects the pixel to region 669, JAX leaves it to region 829);
+      frame 5, sensor 2 (34, 128) - (35, 128): +5.47e-06 / -7.34e-07 (JAX
+        connects it to region 4353, the port leaves it to 5568);
+      frame 6, sensor 5 (116, 110) - (116, 109): -4.66e-05 / +1.38e-05 (the
+        port connects it to 18562, JAX leaves it to 18670)."""
+    ft, fj = _frames(dataset, calibs, n)
+    xyz2, _rgb2, normals, pre, _lab = [a.numpy() for a in t_pe._sensor_clouds(ft.depth_undistorted_m, ft.rgb)]
+    xyz2_j, normals_j, pre_j = [np.asarray(a) for a in _jax_chain_to_segments(fj.depth_undistorted_m, fj.rgb)]
+    built = j_pe.build_sensor_clouds(fj.depth_undistorted_m, fj.rgb)
+    np.testing.assert_array_equal(xyz2_j, np.asarray(built[0]))  # the app's program, stage by stage
+    np.testing.assert_array_equal(normals_j, np.asarray(built[2]))
+    same_inputs = np.asarray(V(j_seg.segment_planes)(jnp.asarray(xyz2), jnp.asarray(normals)))
+    np.testing.assert_array_equal(pre, same_inputs)
+    differ = np.argwhere(pre != pre_j)
+    assert len(differ) == CHAIN_LABEL_DIFFERENCES[n]
+    cos_thr = t_seg.cos_threshold()
+
+    def edge(x, nrm, a, b):
+        """(normals' dot - cos threshold, |d_a - d_b| - distance threshold),
+        as segment_planes computes them."""
+        na, nb, pa, pb = (torch.from_numpy(v.astype(np.float32)) for v in (nrm[a], nrm[b], x[a], x[b]))
+        dd = torch.abs(t_nrm.dot3(na, pa) - t_nrm.dot3(nb, pb))
+        return float(t_nrm.dot3(na, nb)) - cos_thr, float(dd) - t_seg.DISTANCE_THRESHOLD
+
+    for s, r, c in differ:
+        deciding = []
+        for dr, dc in ((0, 1), (0, -1), (1, 0), (-1, 0)):
+            r2, c2 = r + dr, c + dc
+            if not (0 <= r2 < pre.shape[1] and 0 <= c2 < pre.shape[2]):
+                continue
+            (cos_t, dist_t), (cos_j, dist_j) = (edge(xyz2, normals, (s, r, c), (s, r2, c2)),
+                                                edge(xyz2_j, normals_j, (s, r, c), (s, r2, c2)))
+            if (cos_t > 0 and dist_t < 0) != (cos_j > 0 and dist_j < 0):
+                deciding.append((cos_t, dist_t, cos_j, dist_j))
+                # the angle agrees; the distance falls on either side of 0.02 m
+                assert cos_t > 0 and cos_j > 0, (s, r, c, dr, dc, cos_t, cos_j)
+                assert (dist_t < 0) != (dist_j < 0) and max(abs(dist_t), abs(dist_j)) < 1e-4, (dist_t, dist_j)
+                # the operands: the filtered depth a few ulps apart
+                assert _ulps(xyz2[s, r2, c2, 2:], xyz2_j[s, r2, c2, 2:]).max() <= 8
+                assert np.abs(normals[s, r, c] - normals_j[s, r, c]).max() < 1e-3
+        assert len(deciding) == 1, (s, r, c, deciding)

@@ -209,18 +209,31 @@ def room_capture(pose: np.ndarray, rts: np.ndarray, obstacles=OBSTACLES) -> RawF
     return RawFrame360(rgb=np.stack(rgbs), depth=np.stack(depths))
 
 
+def _write_capture(path: str, pose: np.ndarray, rts: np.ndarray, timestamp: int) -> None:
+    raw = room_capture(pose, rts)
+    raw.timestamp = timestamp
+    write_frame360_bin(path, raw)
+
+
 def write_sequence(out: str, rts: np.ndarray, frames: int = 6, loops: float = 0.1,
-                   radius: float = 0.8, start: int = 1) -> np.ndarray:
+                   radius: float = 0.8, start: int = 1, workers: int = 1) -> np.ndarray:
     """sphere_images_<start..>.bin along loop_pose(2*pi*loops*i/frames,
-    radius), plus poses_gt.txt. Returns the (frames, 4, 4) rig poses."""
+    radius), plus poses_gt.txt. Returns the (frames, 4, 4) rig poses.
+    ``workers`` > 1 ray-casts the captures in that many processes (the
+    files are the same)."""
     os.makedirs(out, exist_ok=True)
-    poses = []
-    for i in range(frames):
-        pose = loop_pose(2.0 * np.pi * loops * i / frames, radius)
-        raw = room_capture(pose, rts)
-        raw.timestamp = 10_000_000 * (i + 1)
-        write_frame360_bin(os.path.join(out, f"sphere_images_{start + i}.bin"), raw)
-        poses.append(pose)
+    poses = [loop_pose(2.0 * np.pi * loops * i / frames, radius) for i in range(frames)]
+    jobs = [(os.path.join(out, f"sphere_images_{start + i}.bin"), pose, rts, 10_000_000 * (i + 1))
+            for i, pose in enumerate(poses)]
+    if workers > 1:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("fork")) as pool:
+            list(pool.map(_write_capture, *zip(*jobs)))
+    else:
+        for job in jobs:
+            _write_capture(*job)
     with open(os.path.join(out, "poses_gt.txt"), "w") as f:
         for pose in poses:
             f.write(" ".join(f"{v:.9g}" for v in pose.ravel()) + "\n")
@@ -236,6 +249,16 @@ def relative_pose_errors(trajectory, ground_truth) -> np.ndarray:
         cos = np.clip((np.trace(est[:3, :3].T @ true[:3, :3]) - 1.0) / 2.0, -1.0, 1.0)
         errs.append((np.linalg.norm(est[:3, 3] - true[:3, 3]), np.degrees(np.arccos(cos))))
     return np.array(errs).reshape(-1, 2)
+
+
+def absolute_trajectory_error(trajectory, ground_truth) -> float:
+    """RMS translation error (m) of the trajectory against the ground truth,
+    both expressed relative to their first pose (the SLAM apps start at the
+    identity)."""
+    est, true = np.asarray(trajectory, np.float64), np.asarray(ground_truth, np.float64)
+    true = np.linalg.inv(true[0]) @ true
+    est = np.linalg.inv(est[0]) @ est
+    return float(np.sqrt(np.mean(np.sum((est[:, :3, 3] - true[:, :3, 3]) ** 2, axis=1))))
 
 
 def main(argv=None) -> int:
