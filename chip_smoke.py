@@ -4,8 +4,9 @@ Drives the port's main paths through the entry points a user calls — dense
 spherical photo+depth pair registration of the bundled golden pair
 (tests/golden/pair_1_10.npz) at 1920x320, 5 pyramid levels, PHOTO_DEPTH,
 batch 8, the odometry app over raw 8-sensor captures (load, undistort,
-stitch, planes, register), and the two SLAM apps over a 40-frame loop —
-and checks them end to end:
+stitch, planes, register), the registration methods (the 8-camera pinhole
+registration among them), the two SLAM apps and the batched sphere-graph
+registration over a 40-frame loop — and checks them end to end:
 
   1. a CUDA device is present; print the card's name and power limit;
   2. build the CUDA kernels from rgbd360_torch/csrc (nvcc, sm_90a);
@@ -66,6 +67,22 @@ and checks them end to end:
      speculative_align on and off in alternating runs: keyframes selected,
      loop closures, speculative aligns dispatched / consumed / wasted, ms per
      frame; the runs must agree;
+  5g. MethodsRegisterRGBD360 (apps/methods_register.py) on frames 1->2 and
+     1->3 of the 6-frame dataset on the card: the app as a user runs it
+     (pair 1->2), then each of its five methods on its own (PbMap, dense
+     sphere, dense sphere Occ1, point-to-plane ICP, the 8-camera robot-frame
+     dense registration): every pose within the method's ground-truth bound
+     (METHOD_GT, from the port's CPU run), the 8-camera and ICP poses within
+     METHOD_CPU_T / METHOD_CPU_DEG of the port's CPU run, the Occ1 align's
+     windowed sweeps carried by warp_gather_batched and its exact-final by
+     one FULL launch of warp_gather_batched_multi, each method's
+     synchronised ms;
+  5h. RegisterGraphSphere (apps/register_graph_sphere.py) over the first 16
+     frames of the 40-frame loop, batch 8: the pairs selected (chain and
+     loop closure), every frame in one connected graph, the optimized
+     trajectory's ATE at most the chained one's plus 5 mm, the partition,
+     ms per align_batch chunk and pairs/s, the sweeps carried by their
+     kernels;
   6. timing with CUDA events: warm align throughput on the default
      (windowed kernel) and the exact route, in alternating rounds, and each
      kernel beside its plain version at the L0 shape (the multi-anchor pass
@@ -141,6 +158,21 @@ LC_GT_REL = 0.05  # of the baseline
 LC_GT_ROT_DEG = 2.0
 LC_OUTLIER_WEIGHT = 1e-3  # DCS weight of the robust pose graph
 LC_SEQ_T = 0.005  # metres
+# methods_register (5g), per method: the bound (metres, degrees) of its pose
+# against the ground truth on pairs 1->2 and 1->3 of the 6-frame dataset,
+# from the port's CPU run (the exact gather; the worst of the two pairs
+# beside each). The card's dense sphere aligns take the windowed route.
+METHOD_GT = {
+    "PbMap (PLANAR_3DoF)": (0.002, 0.2),  # CPU 0.936 mm, 0.0773 deg
+    "Dense Photo+Depth": (0.010, 0.5),  # CPU 6.471 mm, 0.3028 deg
+    "Dense Photo+Depth Occ1": (0.012, 0.5),  # CPU 7.817 mm, 0.3261 deg
+    "Point-to-plane ICP": (0.003, 0.2),  # the nearest-pixel floor: CPU 1.049 mm, 0.1060 deg
+    "Dense 8-camera (robot)": (0.001, 0.1),  # CPU 0.325 mm, 0.0254 deg
+}
+METHOD_CPU_T = 0.001  # metres: the 8-camera and ICP poses, card vs CPU
+METHOD_CPU_DEG = 0.05
+GRAPH_FRAMES = 16  # register_graph_sphere's --max-frames default (5h)
+GRAPH_BATCH = 8
 
 
 def card_line() -> str:
@@ -408,8 +440,11 @@ def _stage_medians(text: str) -> dict:
 
 
 def _rot_deg(pose_a: np.ndarray, pose_b: np.ndarray) -> float:
-    cos = np.clip((np.trace(pose_a[:3, :3].T @ pose_b[:3, :3]) - 1.0) / 2.0, -1.0, 1.0)
-    return float(np.degrees(np.arccos(cos)))
+    """The angle of R_a^T R_b in degrees, from both its sine and cosine:
+    arccos alone reads 0.02-0.04 deg between two equal f32 rotations."""
+    r = pose_a[:3, :3].astype(np.float64).T @ pose_b[:3, :3].astype(np.float64)
+    sin = np.linalg.norm([r[2, 1] - r[1, 2], r[0, 2] - r[2, 0], r[1, 0] - r[0, 1]]) / 2.0
+    return float(np.degrees(np.arctan2(sin, (np.trace(r) - 1.0) / 2.0)))
 
 
 def slam_phase(dev, card, calib_root, seq, gt) -> dict:
@@ -620,6 +655,161 @@ def kf_slam_phase(dev, card, calib_root, seq) -> dict:
     return first
 
 
+def methods_phase(dev, card, calib_root, seq, gt) -> tuple:
+    """Phase 5g. Returns the launch counts of the app's run (pair 1->2) and
+    of its Occ1 align alone (pair 1->2)."""
+    from rgbd360_torch.apps import methods_register
+    from rgbd360_torch.apps.common import default_matcher_config
+    from rgbd360_torch.core.frame360 import Frame360
+    from rgbd360_torch.io.calib import Calib360
+    from rgbd360_torch.ops import photoicp, photoicp_pinhole, warp_gather
+
+    path = lambda n: os.path.join(seq, f"sphere_images_{n}.bin")
+
+    def reset():
+        warp_gather.reset_launch_counts()
+        photoicp.reset_sweep_counts()
+        photoicp_pinhole.reset_sweep_counts()
+
+    buf = io.StringIO()
+    reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        methods_register.run([path(1), path(2), "--calib-root", calib_root, "--device", str(dev)])
+    torch.cuda.synchronize()
+    app_ms = (time.perf_counter() - t0) * 1000.0
+    app_launches, sweeps = dict(warp_gather.LAUNCHES), dict(photoicp.SWEEPS)
+    print(buf.getvalue().rstrip(), flush=True)
+    print(f"[{card}] methods_register app, frames 1->2: {app_ms:.1f} ms (frame builds and planes included); "
+          f"launches {app_launches} sweeps {sweeps}", flush=True)
+    # the plain align: windowed sweeps + one DUAL exact-final; Occ1: windowed
+    # sweeps + one FULL occluded exact-final
+    if not (app_launches["warp_gather_batched"] == sweeps["windowed"] > 0 and app_launches["warp_gather_single"] == 0
+            and sweeps["exact_final_dual"] == sweeps["full_coverage"] == 1
+            and app_launches["warp_gather_batched_multi"] == 2):
+        raise AssertionError(f"methods_register: the sweeps did not run through the kernels: {app_launches} vs {sweeps}")
+
+    calib = Calib360.load(calib_root)
+    cfg = default_matcher_config(calib_root)
+    frames = {}
+    for where in (dev, "cpu"):
+        for n in (1, 2, 3):
+            frames[where, n] = Frame360(calib, n, where).build(path(n))
+            frames[where, n].get_planes()
+    truth = np.linalg.inv(gt[0]) @ gt
+    occ1_launches = None
+    for j in (2, 3):
+        on_cpu = dict(methods_register.methods(frames["cpu", 1], frames["cpu", j], cfg))
+        for name, method in methods_register.methods(frames[dev, 1], frames[dev, j], cfg):
+            reset()
+            t0 = time.perf_counter()
+            pose = method()
+            ms = (time.perf_counter() - t0) * 1000.0
+            launches, sweeps, pinhole = dict(warp_gather.LAUNCHES), dict(photoicp.SWEEPS), dict(photoicp_pinhole.SWEEPS)
+            if pose is None:
+                raise AssertionError(f"methods_register 1->{j}: {name} failed on the card")
+            err_t, err_deg = np.linalg.norm(pose[:3, 3] - truth[j - 1][:3, 3]), _rot_deg(pose, truth[j - 1])
+            bound_t, bound_deg = METHOD_GT[name]
+            line = (f"[{card}] methods_register 1->{j} {name}: {ms:.3f} ms synchronised; vs ground truth "
+                    f"{err_t * 1000:.3f} mm {err_deg:.4f} deg (bound {bound_t * 1000:.0f} mm {bound_deg} deg)")
+            if name == "Dense 8-camera (robot)":
+                line += f"; pinhole sweeps {pinhole['sweeps']} (LM retries {pinhole['lm_retries']})"
+            if name in ("Point-to-plane ICP", "Dense 8-camera (robot)"):
+                cpu_pose = on_cpu[name]()
+                dt, ddeg = np.linalg.norm(pose[:3, 3] - cpu_pose[:3, 3]), _rot_deg(pose, cpu_pose)
+                line += f"; vs the CPU {dt * 1000:.4f} mm {ddeg:.5f} deg"
+                if dt > METHOD_CPU_T or ddeg > METHOD_CPU_DEG:
+                    raise AssertionError(f"methods_register 1->{j}: {name} on the card {dt} m, {ddeg} deg from the CPU")
+            if name == "Dense Photo+Depth Occ1":
+                line += f"; launches {launches} sweeps {sweeps}"
+                if not (launches["warp_gather_batched"] == sweeps["windowed"] > 0 and launches["warp_gather_single"] == 0
+                        and launches["warp_gather_batched_multi"] == sweeps["full_coverage"] == 1
+                        and sweeps["exact_final_dual"] == 0):
+                    raise AssertionError(f"Occ1 align: the sweeps did not run through the kernels: {launches} vs {sweeps}")
+                if j == 2:
+                    occ1_launches = launches
+            print(line, flush=True)
+            if err_t > bound_t or err_deg > bound_deg:
+                raise AssertionError(f"methods_register 1->{j}: {name} outside its ground-truth bound")
+    return app_launches, occ1_launches
+
+
+def _quat_pose(values) -> np.ndarray:
+    """4x4 from g2o's "tx ty tz qx qy qz qw"."""
+    tx, ty, tz, x, y, z, w = values
+    pose = np.eye(4)
+    pose[:3, :3] = [[1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+                    [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+                    [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)]]
+    pose[:3, 3] = tx, ty, tz
+    return pose
+
+
+def graph_phase(dev, card, calib_root, seq, gt) -> dict:
+    """Phase 5h: register_graph_sphere over the first GRAPH_FRAMES frames of
+    the loop. Returns the launch counts of the app's run."""
+    from rgbd360_torch.apps import register_graph_sphere
+    from rgbd360_torch.ops import photoicp, warp_gather
+    from tools import synthetic_rig as rig
+
+    with tempfile.TemporaryDirectory() as tmp:
+        buf = io.StringIO()
+        warp_gather.reset_launch_counts()
+        photoicp.reset_sweep_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = register_graph_sphere.main([seq, "--calib-root", calib_root, "--max-frames", str(GRAPH_FRAMES),
+                                             "--batch", str(GRAPH_BATCH), "--out", tmp, "--device", str(dev)])
+        torch.cuda.synchronize()
+        app_ms = (time.perf_counter() - t0) * 1000.0
+        launches, sweeps = dict(warp_gather.LAUNCHES), dict(photoicp.SWEEPS)
+        optimized = np.loadtxt(os.path.join(tmp, "graph_poses.txt")).reshape(-1, 4, 4)
+        edges = {}
+        with open(os.path.join(tmp, "sphere_graph.g2o")) as f:
+            for line in f:
+                if line.startswith("EDGE_SE3:QUAT"):
+                    fields = line.split()
+                    edges[int(fields[1]), int(fields[2])] = _quat_pose([float(v) for v in fields[3:10]])
+    text = buf.getvalue()
+    print("".join(line + "\n" for line in text.splitlines() if not line.startswith("loaded frame")), end="", flush=True)
+    n = len(optimized)
+    selected = re.search(r"^(\d+) pairs selected \((\d+) chain, (\d+) LC\)$", text, re.M)
+    chunk_ms = [float(ms) for ms in re.findall(r"^registered pairs \d+\.\.\d+ on device \(([0-9.]+) ms\)$", text, re.M)]
+    n_pairs = int(selected.group(1))
+    # every frame in one connected graph (the dense edges kept)
+    component = list(range(n))
+    find = lambda a: a if component[a] == a else find(component[a])
+    for i, j in edges:
+        component[find(i)] = find(j)
+    roots = {find(a) for a in range(n)}
+    # the chained trajectory: the dense chain edges (j-1, j) composed
+    chained = [np.eye(4)]
+    for j in range(1, n):
+        if (j - 1, j) not in edges:
+            raise AssertionError(f"register_graph_sphere: the chain edge {j - 1}->{j} was gated out")
+        chained.append(chained[-1] @ edges[j - 1, j])
+    ate_chained = rig.absolute_trajectory_error(chained, gt[:n])
+    ate_optimized = rig.absolute_trajectory_error(optimized, gt[:n])
+    partition = re.search(r"^partition: (.*)$", text, re.M).group(1)
+    print(f"[{card}] register_graph_sphere, {n} frames of the {SLAM_FRAMES}-frame loop, batch {GRAPH_BATCH}: "
+          f"{n_pairs} pairs ({selected.group(2)} chain, {selected.group(3)} loop closure), {len(edges)} edges kept, "
+          f"{len(roots)} connected component(s); ATE chained {ate_chained * 1000:.3f} mm, optimized "
+          f"{ate_optimized * 1000:.3f} mm; partition {partition}; align_batch ms per chunk "
+          f"{np.round(chunk_ms, 3).tolist()} = {n_pairs * 1000.0 / sum(chunk_ms):.2f} pairs/s; the whole app "
+          f"{app_ms:.1f} ms", flush=True)
+    print(f"launches {launches} sweeps {sweeps}", flush=True)
+    if rc != 0 or n != GRAPH_FRAMES or len(chunk_ms) != -(-n_pairs // GRAPH_BATCH):
+        raise AssertionError(f"register_graph_sphere: rc {rc}, {n} frames, {len(chunk_ms)} chunks of {n_pairs} pairs")
+    if len(roots) != 1:
+        raise AssertionError(f"register_graph_sphere: {len(roots)} connected components")
+    if ate_optimized > ate_chained + 0.005:
+        raise AssertionError(f"register_graph_sphere: optimized ATE {ate_optimized} vs chained {ate_chained}")
+    if not (launches["warp_gather_batched"] == sweeps["windowed"] > 0 and launches["warp_gather_single"] == 0
+            and launches["warp_gather_batched_multi"] == sweeps["exact_final_dual"] == len(chunk_ms)):
+        raise AssertionError(f"register_graph_sphere: the sweeps did not run through the kernels: {launches} vs {sweeps}")
+    return launches
+
+
 def gather_bound_ms(*tensors) -> float:
     """Least time to move ``tensors`` once each through HBM, in ms."""
     return sum(t.numel() * t.element_size() for t in tensors) / HBM_BYTES_PER_S * 1000.0
@@ -783,6 +973,7 @@ def main() -> int:
         odometry_launches = odometry_phase(dev, card, calib_root, seq, gt)
         planes_phase(dev, card, calib_root, seq)
         planes_launches = with_planes_phase(dev, card, calib_root, seq, gt)
+        methods_launches, occ1_launches = methods_phase(dev, card, calib_root, seq, gt)
 
     # -- 5e-5f. the SLAM loop -----------------------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -793,6 +984,7 @@ def main() -> int:
         print(f"SLAM loop: {SLAM_FRAMES} frames written in {time.perf_counter() - t0:.2f} s", flush=True)
         slam_launches = slam_phase(dev, card, calib_root, seq, gt)
         kf_slam_launches = kf_slam_phase(dev, card, calib_root, seq)
+        graph_launches = graph_phase(dev, card, calib_root, seq, gt)
     # each path's launch counts, reset just before the path ran
     path_launches = {
         "golden_align": launches, "golden_align_single_buffer": single_launches,
@@ -800,6 +992,8 @@ def main() -> int:
         "dense_odometry_single_buffer": odometry_launches["single-buffer"],
         "with_planes_odometry": planes_launches,
         "slam_loop": slam_launches, "kf_slam_loop": kf_slam_launches,
+        "methods_register": methods_launches, "methods_register_occ1": occ1_launches,
+        "register_graph_sphere": graph_launches,
     }
 
     # -- 6. timing -------------------------------------------------------------------

@@ -3,10 +3,11 @@ reference public API (include/RegisterRGBD360.h): setReference/setTarget with
 top-K-area subgraphs, RegisterPbMap, getPose/getInfoMat/getAreaMatched/
 getMatchedPlanes/calcEntropy/trackingScore.
 
-Counterpart of rgbd360_tpu/core/register_rgbd360.py, its PbMap half copied
-(host numpy over the frames' PbMaps). The dense multi-sensor pinhole
-registration (register_dense_photoicp) comes with ROADMAP queue 1, slice 4
-(the pinhole path) and raises NotImplementedError here.
+Counterpart of rgbd360_tpu/core/register_rgbd360.py: its PbMap half copied
+(host numpy over the frames' PbMaps), and its dense half,
+register_dense_photoicp (the 8-camera robot-frame pinhole registration,
+RegisterRGBD360.h:344-516), on the frames' device through
+ops/photoicp_pinhole.py.
 """
 
 from __future__ import annotations
@@ -99,9 +100,30 @@ class RegisterRGBD360:
 
     def register_dense_photoicp(self, frame1, frame2, pose_estim: Optional[np.ndarray] = None,
                                 method: int = 0, n_levels: int = 4) -> bool:
-        raise NotImplementedError(
-            "RegisterRGBD360.register_dense_photoicp: the multi-sensor pinhole registration "
-            "(ops/photoicp_pinhole.py) is not ported yet: ROADMAP queue 1, slice 4 (the pinhole path)")
+        """Dense multi-sensor registration: one robot pose optimized jointly
+        from the 8 cameras' pinhole residuals on the frames' device
+        (reference RegisterRGBD360.h:344-516 RegisterDensePhotoICP;
+        register_rgbd360.py:112). frame2 is the source, its raw (not
+        undistorted) depth in metres. Returns False when the system is
+        ill-posed; sets the pose and, as information, the Hessian."""
+        import torch
+
+        from rgbd360_torch.ops.image import gray_f32
+        from rgbd360_torch.ops.photoicp_pinhole import register_dense_photoicp
+
+        dev = frame2.device
+        guess = np.eye(4, dtype=np.float32) if pose_estim is None else pose_estim
+        rt, _rt_inv, cam = frame1.calib.device_extrinsic_arrays(dev)  # cached uploads
+        res = register_dense_photoicp(
+            gray_f32(frame2.rgb), frame2.depth_raw_mm.to(torch.float32) * 0.001,
+            gray_f32(frame1.rgb), frame1.depth_raw_mm.to(torch.float32) * 0.001,
+            rt, cam, torch.as_tensor(guess, dtype=torch.float32).to(dev), method=method, n_levels=n_levels,
+        )
+        self._done = True
+        self.ref360, self.trg360 = frame1, frame2
+        self.rigid_transf = res.pose.cpu().numpy()
+        self.information = res.hessian.cpu().numpy()
+        return not bool(res.ill_posed)
 
     # -- accessors ---------------------------------------------------------------
     def get_pose(self) -> np.ndarray:

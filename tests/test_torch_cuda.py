@@ -251,3 +251,47 @@ def test_full_coverage_align_batch_launches_equal_its_sweeps(cuda):
     assert photoicp.SWEEPS["windowed"] == photoicp.SWEEPS["exact_final_dual"] == 0
     assert torch.isfinite(res.pose).all() and not bool(res.ill_posed.any())
     assert float((res.pose[0] - res.pose[1]).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_pinhole_robot_sweep_occ1_on_the_card_matches_the_cpu(cuda):
+    """ops/photoicp_pinhole.py's fused sweep in the robot frame with the
+    z-buffer (Occ1), 8 x 240 x 320 (the 8-camera registration's L0), on the
+    card against the same call on the CPU: the term counts within 1e-4 of
+    their total (a round-half or z-buffer tie that f32 contraction moves),
+    the sums within 1e-4 relative, H and g within 1e-4 of their scale (the
+    order of f32 sums over 614k terms)."""
+    from rgbd360_torch.core.calibrator import construction_specs
+    from rgbd360_torch.io.calib import qvga_camera_matrix
+    from rgbd360_torch.ops import photoicp
+    from rgbd360_torch.ops import photoicp_pinhole as pp
+    from rgbd360_torch.ops.image import gray_f32
+    from tools import synthetic_rig as rig
+
+    rts = construction_specs().astype(np.float32)
+    p_src, p_trg = rig.loop_pose(0.1, 0.8), rig.loop_pose(0.0, 0.8)
+    src, trg = rig.room_capture(p_src, rts), rig.room_capture(p_trg, rts)
+    pose = (np.linalg.inv(p_trg) @ p_src).astype(np.float32)
+
+    def sweep(dev):
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        level = photoicp.make_level_data(
+            photoicp.build_pyramid_set(gray_f32(t(src.rgb)), t(src.depth).to(torch.float32) * 0.001, 1,
+                                       is_target=False, sphere_seam_mask=False),
+            photoicp.build_pyramid_set(gray_f32(t(trg.rgb)), t(trg.depth).to(torch.float32) * 0.001, 1,
+                                       is_target=True, sphere_seam_mask=False), 0)
+        k = t(qvga_camera_matrix())
+        xyz, valid = pp.pinhole_lut(level.depth_src, k, 0)
+        out = pp.fused_sweep_pinhole(level.gray_src.reshape(8, -1), photoicp.pack_target_planes8(level), (240, 320),
+                                     xyz, valid, t(pose), k, 0, pp.PHOTO_DEPTH, t(rts), occlusion=1)
+        return [x.cpu().numpy() for x in out]
+
+    on_card, on_cpu = sweep(cuda), sweep("cpu")
+    err2_g, n_g, H_g, g_g, _pe, np_g, _de, nd_g = on_card
+    err2_c, n_c, H_c, g_c, _pe, np_c, _de, nd_c = on_cpu
+    assert int(n_c) > 400_000
+    for a, b in ((n_g, n_c), (np_g, np_c), (nd_g, nd_c)):
+        assert abs(int(a) - int(b)) <= 1e-4 * int(n_c)
+    assert float(err2_g) == pytest.approx(float(err2_c), rel=1e-4)
+    np.testing.assert_allclose(H_g, H_c, rtol=0, atol=1e-4 * np.abs(H_c).max())
+    np.testing.assert_allclose(g_g, g_c, rtol=0, atol=1e-4 * np.abs(g_c).max())

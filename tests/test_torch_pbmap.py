@@ -1,11 +1,14 @@
 """PbMap registration of the port (rgbd360_torch/core/{pbmap,matcher,
 register_rgbd360}.py, io/ini.py: numpy copies of the JAX package's modules)
-against the JAX package, on the CPU.
+against the JAX package, on the CPU; with it the dense 8-camera
+registration of RegisterRGBD360 (ops/photoicp_pinhole.py) and the
+PbMap-only sequence app (apps/register_sequence_label.py).
 
 Tolerances: on the same planes, everything equal (the host code is a copy);
 on each package's own planes of a synthetic pair (tools/synthetic_rig.py's
 room, frames 1 and 2), the same best_match, the pose within 1e-5 and the
-information matrix within 1e-4 relative to its largest entry.
+information matrix within 1e-4 relative to its largest entry; the dense
+8-camera pose within 1e-4 (JAX gathers f16 gradients, the port f32).
 """
 
 import os
@@ -16,12 +19,15 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+from rgbd360_torch.apps import register_sequence_label as t_seq_label  # noqa: E402
 from rgbd360_torch.core import matcher as t_matcher  # noqa: E402
 from rgbd360_torch.core import pbmap as t_pbmap  # noqa: E402
 from rgbd360_torch.core import register_rgbd360 as t_reg  # noqa: E402
+from rgbd360_torch.core.labelization import labelize_frame, propagate_labels  # noqa: E402
 from rgbd360_torch.core.frame360 import Frame360 as TFrame  # noqa: E402
 from rgbd360_torch.io import ini as t_ini  # noqa: E402
 from rgbd360_torch.io.calib import Calib360 as TCalib  # noqa: E402
+from rgbd360_tpu.apps import register_sequence_label as j_seq_label  # noqa: E402
 from rgbd360_tpu.core import matcher as j_matcher  # noqa: E402
 from rgbd360_tpu.core import pbmap as j_pbmap  # noqa: E402
 from rgbd360_tpu.core import register_rgbd360 as j_reg  # noqa: E402
@@ -34,12 +40,20 @@ MODES = [t_matcher.DEFAULT_6DOF, t_matcher.PLANAR_3DOF, t_matcher.ODOMETRY_6DOF,
 
 
 @pytest.fixture(scope="module")
-def pair(tmp_path_factory):
-    """((port frame 1, port frame 2), (JAX frame 1, JAX frame 2)) with planes
-    (need_inliers=False, the odometry configuration)."""
+def rig_root(tmp_path_factory):
+    """A directory holding calib/ (the calibration root) and seq/ (frames 1
+    and 2 of tools/synthetic_rig.py's sequence)."""
     d = str(tmp_path_factory.mktemp("pbmap"))
     rts = rig.write_calib_root(os.path.join(d, "calib"))
     rig.write_sequence(os.path.join(d, "seq"), rts, frames=2, loops=0.1 * 2 / 6)
+    return d
+
+
+@pytest.fixture(scope="module")
+def pair(rig_root):
+    """((port frame 1, port frame 2), (JAX frame 1, JAX frame 2)) with planes
+    (need_inliers=False, the odometry configuration)."""
+    d = rig_root
     tc, jc = TCalib.load(os.path.join(d, "calib")), JCalib.load(os.path.join(d, "calib"))
     paths = [os.path.join(d, "seq", f"sphere_images_{n}.bin") for n in (1, 2)]
     port = [TFrame(tc, n, "cpu").build(p) for n, p in zip((1, 2), paths)]
@@ -179,10 +193,56 @@ def test_pbmap_files_load_across_packages(pair, tmp_path):
                 assert a.n_pts == b.n_pts and a.area_hull == b.area_hull
 
 
-def test_register_dense_photoicp_waits_for_the_pinhole_slice(pair):
+def test_register_dense_photoicp_matches_jax(pair):
+    """The 8-camera robot-frame registration (ops/photoicp_pinhole.py) at 2
+    levels, the method's default (PHOTO_CONSISTENCY): each package reads its
+    own frames' raw depth and gray; the pose within 1e-4 of JAX's (JAX's f16
+    gradients against the port's f32), the information within 1e-3 of its
+    scale."""
+    (t1, t2), (j1, j2) = pair
+    rt, rj = t_reg.RegisterRGBD360(), j_reg.RegisterRGBD360()
+    assert rt.register_dense_photoicp(t1, t2, n_levels=2)
+    assert rj.register_dense_photoicp(j1, j2, n_levels=2)
+    np.testing.assert_allclose(rt.get_pose(), rj.get_pose(), rtol=0, atol=1e-4)
+    info_t, info_j = rt.get_info_mat(), rj.get_info_mat()
+    np.testing.assert_allclose(info_t, info_j, rtol=0, atol=1e-3 * np.abs(info_j).max())
+    assert rt.ref360 is t1 and rt.trg360 is t2 and rt.get_pose().dtype == np.float32
+    # the rig frame's motion: 6 deg about x, ~8.4 cm (rig.loop_pose)
+    assert 0.08 < np.linalg.norm(rt.get_pose()[:3, 3]) < 0.09
+
+
+def test_register_sequence_label_matches_jax_app(pair, rig_root, tmp_path, capsys):
+    """RegisterSequenceSphere_labelFast over keyframes the port saved
+    (Frame360.save): keyframe 1 labelized, 2 with the labels propagated, 3
+    (frame 2 again) with none, which the app skips. PbMap registration is
+    host code copied from the JAX package: the printout (times aside) and
+    the trajectory equal, the merged cloud's point count equal."""
+    import copy
+    import re
+
     (t1, t2), _ = pair
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        t_reg.RegisterRGBD360().register_dense_photoicp(t1, t2)
+    kfs = [copy.copy(f) for f in (t1, t2, t2)]
+    for f in kfs:
+        f.planes = copy.deepcopy(f.planes)  # the fixture's planes stay unlabeled
+    assert labelize_frame(kfs[0], {0: "wall", 1: "floor"}) == 2
+    assert propagate_labels(kfs[0], kfs[1], t_reg.RegisterRGBD360()) == 2
+    kf_dir = tmp_path / "kfs"
+    kf_dir.mkdir()
+    for n, f in enumerate(kfs, start=1):
+        f.save(str(kf_dir), n)
+    calib = os.path.join(rig_root, "calib")
+    stats = t_seq_label.run(str(kf_dir), str(tmp_path / "port"), calib_root=calib, device="cpu")
+    out_t = capsys.readouterr().out
+    assert j_seq_label.main([str(kf_dir), "--out", str(tmp_path / "jax"), "--calib-root", calib]) == 0
+    out_j = capsys.readouterr().out
+    assert "frame 3: NO LABELS" in out_t and (stats["labelized"], stats["unlabelized"]) == (1, 1)
+    strip_ms = lambda text: re.sub(r"T=[0-9.]+ ms|avTime [0-9.]+ ms", "", text)
+    assert strip_ms(out_t) == strip_ms(out_j)
+    traj_t, traj_j = (np.loadtxt(tmp_path / d / "trajectory.txt") for d in ("port", "jax"))
+    np.testing.assert_array_equal(traj_t, traj_j)
+    assert 0.05 < np.linalg.norm(traj_t.reshape(-1, 4, 4)[1, :3, 3]) < 0.12
+    points = lambda d: int(re.search(r"element vertex (\d+)", (tmp_path / d / "global_map.ply").read_text()).group(1))
+    assert points("port") == points("jax") > 0
 
 
 def test_accessors_register_lazily_and_failures_score_bad(pair):
