@@ -83,6 +83,27 @@ registration over a 40-frame loop — and checks them end to end:
      trajectory's ATE at most the chained one's plus 5 mm, the partition,
      ms per align_batch chunk and pairs/s, the sweeps carried by their
      kernels;
+  5i. the calibration suite on 6 captures ray-cast through a perturbed rig
+     (tools/synthetic_rig.py::perturbed_rig(0): sensors 1-7 turned by 1 deg
+     and shifted by N(0, 5 mm)) with a calibration root of construction
+     specs, each app on the card as a user runs it: get_control_planes,
+     pair_calibrator (--planes and --dataset, pair 1-2), calibrate_rig,
+     online_calibration (3 frames), eval_calibration (4 frames, 3 dense
+     aligns), visualize_calibration (frame 1). Against the port's CPU run:
+     the per-frame control-plane counts equal, each ring pair's relative
+     pose within CALIB_CPU_DEG / CALIB_CPU_T, eval_calibration's printout
+     equal but for avScoreFitness, within FITNESS_LIMIT; each relative
+     rotation closer to the truth than the construction specs and within
+     CALIB_TRUTH_DEG (the translation error printed, not gated); the aligns'
+     windowed sweeps carried by warp_gather_batched and one DUAL per align;
+     per-frame build, planes and gather ms, the solve's and each align's;
+  5j. load_stereo --planes on the room ray-cast as a 1024 x 180 stereo
+     panorama on the card, held to the port's CPU run (stereo_parity: the
+     segment-stage labels equal, the refined labels within LABEL_DIFF_LIMIT
+     with each pixel explained, the same planes), the stereo device
+     program's warm ms; tof_calibrator --demo on the card, its estimate
+     within 1e-5 of the CPU's and its ground-truth error no worse than the
+     JAX demo's;
   6. timing with CUDA events: warm align throughput on the default
      (windowed kernel) and the exact route, in alternating rounds, and each
      kernel beside its plain version at the L0 shape (the multi-anchor pass
@@ -173,6 +194,28 @@ METHOD_CPU_T = 0.001  # metres: the 8-camera and ICP poses, card vs CPU
 METHOD_CPU_DEG = 0.05
 GRAPH_FRAMES = 16  # register_graph_sphere's --max-frames default (5h)
 GRAPH_BATCH = 8
+# the calibration suite (5i): 6 captures through tools/synthetic_rig.py's
+# perturbed_rig(0) (sensors 1-7 turned by 1 deg, shifted by N(0, 5 mm)),
+# the calibration root of construction specs
+CALIB_FRAMES = 6
+CALIB_ONLINE_FRAMES = 3
+CALIB_EVAL_FRAMES = 4  # 3 dense aligns
+CALIB_TRUTH_DEG = 0.6  # every adjacent relative rotation against the truth
+# card vs CPU, each adjacent relative pose of calibrate_rig's result: the
+# control planes' offsets move by up to ~1e-4 m between two f32 fits
+# (tests/test_torch_calibration.py), and the translation solve, ill-
+# conditioned on a box room (ROADMAP queue 3), amplifies them. On an H100
+# the card's rig sat within 5e-5 deg and 0.0051 mm of the CPU's.
+CALIB_CPU_DEG = 0.01
+CALIB_CPU_T = 0.001  # metres
+# eval_calibration's avScoreFitness, card vs CPU: the windowed route against
+# the CPU's exact one (load_sequence's avDepth tolerance; an H100 read 0.0866
+# against the CPU's 0.0865)
+FITNESS_LIMIT = 1.5e-3
+# the stereo frame (5j): the room ray-cast at the derived full size
+STEREO_TIMED = 10
+# tof_calibrator --demo: the JAX app's printed ground-truth error (|dR|, |dt|)
+TOF_DEMO_GT = (2.51e-5, 3.37e-4)
 
 
 def card_line() -> str:
@@ -810,6 +853,230 @@ def graph_phase(dev, card, calib_root, seq, gt) -> dict:
     return launches
 
 
+def _run_app(main, argv, timed=False):
+    """(rc, stdout, ms) of one app run, synchronised; stage timing on when
+    ``timed``."""
+    from rgbd360_torch.utils import timing
+
+    buf = io.StringIO()
+    try:
+        timing.stage_timing(timed)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1000.0
+    finally:
+        timing.stage_timing(False)
+    return rc, buf.getvalue(), ms
+
+
+def _untimed(text: str) -> str:
+    return "".join(line + "\n" for line in text.splitlines() if not re.match(r"^.+ took [0-9.]+ ms$", line))
+
+
+def ring_errors(rt_a: np.ndarray, rt_b: np.ndarray) -> np.ndarray:
+    """(8, 2): per ring pair (s, s+1 mod 8), the rotation (deg) and
+    translation (m) between the pair's relative pose in rig a and in rig b."""
+    out = []
+    for s in range(8):
+        a = np.linalg.inv(rt_a[s]) @ rt_a[(s + 1) % 8]
+        b = np.linalg.inv(rt_b[s]) @ rt_b[(s + 1) % 8]
+        out.append((_rot_deg(a, b), np.linalg.norm(a[:3, 3] - b[:3, 3])))
+    return np.array(out)
+
+
+def calibration_phase(dev, card) -> dict:
+    """Phase 5i: the calibration suite on the card as a user runs it, against
+    the port's CPU run. Returns the launch counts of eval_calibration's run."""
+    from rgbd360_torch.apps import (calibrate_rig, eval_calibration, get_control_planes, online_calibration,
+                                    pair_calibrator, visualize_calibration)
+    from rgbd360_torch.apps.get_control_planes import load_correspondences
+    from rgbd360_torch.core.calibrator import construction_specs
+    from rgbd360_torch.ops import photoicp, warp_gather
+    from tools import synthetic_rig as rig
+
+    load_rt = lambda d: np.stack([np.loadtxt(os.path.join(d, f"Rt_0{s + 1}.txt")) for s in range(8)])
+    frame_lines = lambda text: re.findall(r"^frame \d+: .*$", text, re.M)
+    with tempfile.TemporaryDirectory() as tmp:
+        calib_root, seq = os.path.join(tmp, "calib"), os.path.join(tmp, "seq")
+        true = rig.perturbed_rig(0)
+        t0 = time.perf_counter()
+        rig.write_calib_root(calib_root)
+        rig.write_sequence(seq, true, frames=CALIB_FRAMES, workers=min(8, os.cpu_count() or 1))
+        print(f"calibration dataset: {CALIB_FRAMES} captures through the perturbed rig written in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        common = ["--calib-root", calib_root]
+        evaluate = [seq, *common, "--max-frames", str(CALIB_EVAL_FRAMES)]
+
+        # the port's CPU run: the reference of calibrate_rig and eval_calibration
+        t0 = time.perf_counter()
+        rc_rig, cpu_rig, _ = _run_app(calibrate_rig.main, [seq, *common, "--out", os.path.join(tmp, "rt_cpu"),
+                                                          "--device", "cpu"])
+        rc_eval, cpu_eval, _ = _run_app(eval_calibration.main, evaluate + ["--device", "cpu"])
+        if rc_rig or rc_eval:
+            raise AssertionError(f"the CPU reference runs failed: rc {rc_rig}, {rc_eval}")
+        print(f"calibration CPU reference (calibrate_rig, eval_calibration): {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+        # the card, as a user runs each app
+        rc, text, rig_ms = _run_app(calibrate_rig.main, [seq, *common, "--out", os.path.join(tmp, "rt_card"),
+                                                        "--device", str(dev)], timed=True)
+        print(_untimed(text), end="", flush=True)
+        per_frame = {name: np.round(np.sum([_stage_ms(text, s) for s in stages], axis=0), 3).tolist() for name, stages in (
+            ("build (load + undistort + stitch)", ("Frame360.loadFrame", "Frame360.undistort",
+                                                   "Frame360.stitchSphericalImage")),
+            ("planes", ("Frame360.getPlanes (segmentation)",)), ("gather", ("Control-plane gather",)))}
+        solve_ms = _stage_ms(text, "Calibration solve")
+        rt_card, rt_cpu = load_rt(os.path.join(tmp, "rt_card")), load_rt(os.path.join(tmp, "rt_cpu"))
+        vs_cpu, vs_truth = ring_errors(rt_card, rt_cpu), ring_errors(rt_card, true)
+        spec_truth = ring_errors(construction_specs(), true)
+        print(f"[{card}] calibrate_rig, {CALIB_FRAMES} frames: per-frame ms, synchronised: "
+              + "; ".join(f"{k} {v}" for k, v in per_frame.items())
+              + f"; solve {solve_ms} ms; the whole app {rig_ms:.1f} ms; printout (timing aside) equal to the CPU's: "
+              f"{_untimed(text).replace('rt_card', 'rt_cpu') == cpu_rig}", flush=True)
+        print(f"calibrate_rig ring pairs 0-1 .. 7-0: card vs CPU {np.round(vs_cpu[:, 0], 5).tolist()} deg, "
+              f"{np.round(vs_cpu[:, 1] * 1000, 4).tolist()} mm; vs the truth {np.round(vs_truth[:, 0], 3).tolist()} deg "
+              f"(construction specs {np.round(spec_truth[:, 0], 3).tolist()}), translation (recorded, not gated) "
+              f"{np.round(vs_truth[:, 1] * 1000, 2).tolist()} mm (construction specs "
+              f"{np.round(spec_truth[:, 1] * 1000, 2).tolist()})", flush=True)
+        if rc != 0 or frame_lines(text) != frame_lines(cpu_rig) or len(frame_lines(text)) != CALIB_FRAMES:
+            raise AssertionError(f"calibrate_rig: rc {rc}; per-frame control planes {frame_lines(text)} on the card, "
+                                 f"{frame_lines(cpu_rig)} on the CPU")
+        if (vs_cpu[:, 0] > CALIB_CPU_DEG).any() or (vs_cpu[:, 1] > CALIB_CPU_T).any():
+            raise AssertionError(f"calibrate_rig: the card's rig differs from the CPU's: {vs_cpu}")
+        if not ((vs_truth[:, 0] < spec_truth[:, 0]).all() and (vs_truth[:, 0] <= CALIB_TRUTH_DEG).all()):
+            raise AssertionError(f"calibrate_rig: rotations not closer to the truth: {vs_truth[:, 0]}")
+
+        out_cp = os.path.join(tmp, "cp")
+        rc, text, ms = _run_app(get_control_planes.main, [seq, *common, "--out", out_cp, "--device", str(dev)])
+        total = sum(len(rows) for rows in load_correspondences(os.path.join(out_cp, "control_planes.npz")).rows.values())
+        print(f"[{card}] get_control_planes: {text.splitlines()[-2]} ({ms:.1f} ms); control_planes.npz holds {total}",
+              flush=True)
+        if rc != 0 or frame_lines(text) != frame_lines(cpu_rig) or f"{total} correspondences" not in text:
+            raise AssertionError(f"get_control_planes: rc {rc}, {frame_lines(text)}, {total} rows in the file")
+        for mode in (["--planes", os.path.join(out_cp, "control_planes.npz")], ["--dataset", seq]):
+            rc, text, ms = _run_app(pair_calibrator.main, [*mode, "--pair", "1", "2", *common, "--device", str(dev)])
+            print(f"[{card}] pair_calibrator {mode[0]} 1-2 ({ms:.1f} ms): " + " | ".join(text.splitlines()[:3]),
+                  flush=True)
+            if rc != 0:
+                raise AssertionError(f"pair_calibrator {mode[0]}: rc {rc}")
+        rc, text, ms = _run_app(online_calibration.main, [seq, *common, "--max-frames", str(CALIB_ONLINE_FRAMES),
+                                                          "--device", str(dev)])
+        print(text + f"[{card}] online_calibration, {CALIB_ONLINE_FRAMES} frames: {ms:.1f} ms", end="\n", flush=True)
+        if rc != 0 or len(frame_lines(text)) != CALIB_ONLINE_FRAMES:
+            raise AssertionError(f"online_calibration: rc {rc}")
+
+        warp_gather.reset_launch_counts()
+        photoicp.reset_sweep_counts()
+        rc, text, ms = _run_app(eval_calibration.main, evaluate + ["--device", str(dev)], timed=True)
+        launches, sweeps = dict(warp_gather.LAUNCHES), dict(photoicp.SWEEPS)
+        align_ms = _stage_ms(text, "Dense alignment 360")
+        text = _untimed(text)
+        fitness = r"avScoreFitness .*: ([0-9.]+)"
+        fit_card, fit_cpu = (float(re.search(fitness, t).group(1)) for t in (text, cpu_eval))
+        print(text + f"[{card}] eval_calibration, {CALIB_EVAL_FRAMES} frames: {ms:.1f} ms, the dense aligns "
+              f"{np.round(align_ms, 3).tolist()} ms synchronised; avScoreFitness {fit_card} on the card, {fit_cpu} on "
+              f"the CPU (limit {FITNESS_LIMIT}); launches {launches} sweeps {sweeps}", flush=True)
+        strip = lambda t: re.sub(fitness, "", t)
+        if rc != 0 or strip(text) != strip(cpu_eval) or abs(fit_card - fit_cpu) > FITNESS_LIMIT:
+            raise AssertionError(f"eval_calibration: rc {rc}, the card's printout differs from the CPU's")
+        if not (launches["warp_gather_batched"] == sweeps["windowed"] > 0 and launches["warp_gather_single"] == 0
+                and launches["warp_gather_batched_multi"] == sweeps["exact_final_dual"] == CALIB_EVAL_FRAMES - 1):
+            raise AssertionError(f"eval_calibration: the sweeps did not run through the kernels: {launches} vs {sweeps}")
+
+        out_vis = os.path.join(tmp, "vis")
+        rc, text, ms = _run_app(visualize_calibration.main, [os.path.join(seq, "sphere_images_1.bin"), *common,
+                                                             "--extrinsics", os.path.join(tmp, "rt_card"),
+                                                             "--out", out_vis, "--device", str(dev)])
+        print(f"[{card}] visualize_calibration frame 1 under the card's calibration ({ms:.1f} ms): "
+              + " | ".join(text.splitlines()[-2:]), flush=True)
+        if rc != 0 or len(re.findall(r"^seam \d->\d: ", text, re.M)) != 8 or not all(
+                os.path.getsize(os.path.join(out_vis, f)) > 0 for f in ("panorama_rgb.png", "panorama_depth.png",
+                                                                         "fused_cloud.ply")):
+            raise AssertionError(f"visualize_calibration: rc {rc}")
+    return launches
+
+
+def stereo_parity(dev, png: str, depth_bin: str) -> dict:
+    """The stereo frame of (png, depth_bin) on ``dev`` against the port's
+    CPU run: the segment-stage labels must be equal, the refined labels
+    differ at no more than LABEL_DIFF_LIMIT of the pixels with each
+    explained (refine_differences), getPlanesStereo's planes equal in count
+    and order, normals within PLANE_NORMAL_LIMIT, d within PLANE_D_LIMIT.
+    Raises AssertionError, else returns what it measured."""
+    from rgbd360_torch.core.frame360_stereo import Frame360Stereo, stereo_segments
+
+    frames = {where: Frame360Stereo(device=where).build_stereo(png, depth_bin) for where in (dev, "cpu")}
+    xyz, pre_cpu, lab_cpu = (t.cpu().numpy() for t in stereo_segments(frames["cpu"].depth_m()))
+    _x, pre_dev, lab_dev = (t.cpu().numpy() for t in stereo_segments(frames[dev].depth_m()))
+    pre_differ = int((pre_dev != pre_cpu).sum())
+    differ = lab_dev != lab_cpu
+    unexplained = refine_differences(xyz, pre_cpu, lab_dev, lab_cpu) if pre_differ == 0 else int(differ.sum())
+    on_dev, on_cpu = (frames[where].get_planes_stereo().planes for where in (dev, "cpu"))
+    same_count = len(on_dev) == len(on_cpu) > 0
+    dn = max((float(np.abs(a.normal - b.normal).max()) for a, b in zip(on_dev, on_cpu)), default=0.0)
+    dd = max((abs(a.d - b.d) for a, b in zip(on_dev, on_cpu)), default=0.0)
+    out = dict(pre_differ=pre_differ, refined_differ=int(differ.sum()), share=float(differ.mean()),
+               unexplained=unexplained, planes=(len(on_dev), len(on_cpu)), normal=dn, d=dd)
+    if not (pre_differ == 0 and differ.mean() <= LABEL_DIFF_LIMIT and unexplained == 0 and same_count
+            and dn <= PLANE_NORMAL_LIMIT and dd <= PLANE_D_LIMIT):
+        raise AssertionError(f"the stereo frame on {dev} differs from the CPU's: {out}")
+    return out
+
+
+def stereo_phase(dev, card) -> None:
+    """Phase 5j: load_stereo on the card on the room's stereo panorama at
+    1024 x 180, held to the port's CPU run; the stereo device program's warm
+    time; tof_calibrator --demo on the card against the CPU and the JAX
+    demo's ground-truth error."""
+    from PIL import Image
+
+    from rgbd360_torch.apps import load_stereo, tof_calibrator
+    from rgbd360_torch.core.frame360_stereo import Frame360Stereo, stereo_plane_stats, write_stereo_depth
+    from tools import synthetic_rig as rig
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rgb, depth = rig.raycast_room_stereo(rig.stereo_pose())
+        png, depth_bin = os.path.join(tmp, "stereo.png"), os.path.join(tmp, "stereo_depth.bin")
+        Image.fromarray(np.ascontiguousarray(rgb[..., ::-1])).save(png)
+        write_stereo_depth(depth_bin, depth)
+        rc, text, app_ms = _run_app(load_stereo.main, [png, depth_bin, "--planes", "--out", os.path.join(tmp, "out"),
+                                                       "--device", str(dev)])
+        print(text, end="", flush=True)
+        parity = stereo_parity(dev, png, depth_bin)
+        frame = Frame360Stereo(device=dev).build_stereo(png, depth_bin)
+    h, w = frame.sphere_depth_mm.shape
+    depth_m = frame.depth_m()
+    program_ms = cuda_ms(lambda: stereo_plane_stats(depth_m, frame.sphere_rgb), STEREO_TIMED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frame.get_planes_stereo()
+    planes_ms = (time.perf_counter() - t0) * 1000.0
+    print(f"[{card}] load_stereo {w}x{h} --planes: {app_ms:.1f} ms the whole app; card vs CPU: segment-stage labels "
+          f"differ at {parity['pre_differ']} pixels, refined labels at {parity['refined_differ']} = "
+          f"{parity['share']:.4%} (limit {LABEL_DIFF_LIMIT:.2%}), {parity['unexplained']} unexplained; planes "
+          f"{parity['planes'][0]} on the card = {parity['planes'][1]} on the CPU, normal {parity['normal']:.3g} (limit "
+          f"{PLANE_NORMAL_LIMIT}), d {parity['d']:.3g} m (limit {PLANE_D_LIMIT}); the stereo device program "
+          f"{program_ms:.3f} ms warm (CUDA events, mean of {STEREO_TIMED}), get_planes_stereo with its host fit "
+          f"{planes_ms:.1f} ms", flush=True)
+    if rc != 0 or f"planes: {parity['planes'][1]}" not in text:
+        raise AssertionError(f"load_stereo: rc {rc}")
+
+    rc, text, tof_ms = _run_app(tof_calibrator.main, ["--demo", "--device", str(dev)])
+    dr, dt = (float(x) for x in re.search(r"\|dR\|=(\S+) \|dt\|=(\S+)", text).groups())
+    # the demo's estimate, computed as the app does, on the card and the CPU
+    fx, o = 90.0, (79.5, 59.5)
+    images = [tof_calibrator._synthetic_depth(rt, fx, fx, *o) for rt in (np.eye(4), tof_calibrator.demo_truth())]
+    est = {where: tof_calibrator.match_planes(*(tof_calibrator.planes_from_depth(d, fx, fx, *o, where) for d in images),
+                                              np.eye(4)).calibrate_pair() for where in (dev, "cpu")}
+    gap = float(np.abs(est[dev] - est["cpu"]).max())
+    print(text + f"[{card}] tof_calibrator --demo: {tof_ms:.1f} ms; estimate card vs CPU {gap:.3g} (limit 1e-5); "
+          f"ground-truth error |dR| {dr} |dt| {dt} (the JAX demo's {TOF_DEMO_GT})", flush=True)
+    if rc != 0 or gap > 1e-5 or dr > 1.01 * TOF_DEMO_GT[0] or dt > 1.01 * TOF_DEMO_GT[1]:
+        raise AssertionError("tof_calibrator --demo: the card's estimate differs from the CPU's or misses the truth")
+
+
 def gather_bound_ms(*tensors) -> float:
     """Least time to move ``tensors`` once each through HBM, in ms."""
     return sum(t.numel() * t.element_size() for t in tensors) / HBM_BYTES_PER_S * 1000.0
@@ -985,6 +1252,12 @@ def main() -> int:
         slam_launches = slam_phase(dev, card, calib_root, seq, gt)
         kf_slam_launches = kf_slam_phase(dev, card, calib_root, seq)
         graph_launches = graph_phase(dev, card, calib_root, seq, gt)
+
+    # -- 5i-5j. the calibration suite, the stereo frame and the ToF calibrator ------------
+    t0 = time.perf_counter()
+    calibration_launches = calibration_phase(dev, card)
+    stereo_phase(dev, card)
+    print(f"phases 5i-5j: {time.perf_counter() - t0:.1f} s", flush=True)
     # each path's launch counts, reset just before the path ran
     path_launches = {
         "golden_align": launches, "golden_align_single_buffer": single_launches,
@@ -993,7 +1266,7 @@ def main() -> int:
         "with_planes_odometry": planes_launches,
         "slam_loop": slam_launches, "kf_slam_loop": kf_slam_launches,
         "methods_register": methods_launches, "methods_register_occ1": occ1_launches,
-        "register_graph_sphere": graph_launches,
+        "register_graph_sphere": graph_launches, "eval_calibration": calibration_launches,
     }
 
     # -- 6. timing -------------------------------------------------------------------

@@ -294,6 +294,60 @@ def _planes_from_stats(
     return local_same_plane_merge(planes)
 
 
+def _planes_from_labels(
+    xyz: np.ndarray, rgb: np.ndarray, labels: np.ndarray, sensor_id: int
+) -> List[Plane]:
+    """Component stats -> Plane objects (reference getPlanesSensor loop,
+    include/Frame360.h:979-1075), still in the sensor frame: the host fit
+    from a label image the device made, each plane fitted from its own
+    points (plane_extraction.py:321, copied; the ToF calibrator's path)."""
+    h, w = labels.shape
+    flat = labels.reshape(-1)
+    xyzf = xyz.reshape(-1, 3)
+    rgbf = rgb.reshape(-1, 3)
+    valid = flat >= 0
+    ids, inverse, counts = np.unique(flat[valid], return_inverse=True, return_counts=True)
+    planes: List[Plane] = []
+    px_of = np.flatnonzero(valid)
+    order = np.argsort(inverse, kind="stable")
+    sorted_px = px_of[order]
+    boundaries = np.concatenate([[0], np.cumsum(counts)])
+    single_cloud_size = h * w
+
+    for k in range(len(ids)):
+        if counts[k] < MIN_INLIERS:
+            continue
+        inl = sorted_px[boundaries[k] : boundaries[k + 1]]
+        pts = xyzf[inl]
+        center = pts.mean(axis=0)
+        cov = (pts - center).T @ (pts - center) / len(pts)
+        evals, evecs = np.linalg.eigh(cov)
+        normal = evecs[:, 0]
+        if normal @ center > 0:  # flip toward the sensor (Frame360.h:988-992)
+            normal = -normal
+        curvature = float(evals[0] / max(evals.sum(), 1e-12))
+
+        plane = Plane(
+            id=len(planes),
+            normal=normal,
+            center=center,
+            curvature=curvature,
+            inliers=inl + sensor_id * single_cloud_size,
+            points=pts,
+            colors=rgbf[inl],
+        )
+        plane.compute_hull_area(pts)
+        if plane.area_hull < MIN_AREA:  # discard small planes (:1034)
+            continue
+        plane.d = float(-plane.normal @ plane.center)
+        if plane.elongation > MAX_ELONGATION:  # discard narrow planes (:1041)
+            continue
+        plane.compute_colors()
+        planes.append(plane)
+
+    return local_same_plane_merge(planes)
+
+
 def _same_surface(pj: Plane, pk: Plane, max_dist_hull: float, max_parallel: float) -> bool:
     """The vertex/edge proximity + parallel-offset test shared by groupPlanes
     and mergePlanes (reference include/Frame360.h:680-711, 785-811)."""

@@ -3,8 +3,8 @@
 Copies of the writers of rgbd360_tpu/utils/viz.py (numpy only; the PCD,
 PLY and PNG files are the same in both packages): ``save_png``,
 ``depth_to_u8``, ``save_sphere_images``, ``save_ply``, ``save_pcd``,
-``load_pcd`` and ``save_trajectory``. A frame's panorama is read back from
-its device first.
+``load_pcd`` and ``save_trajectory``; ``load_png`` is the stereo frame's
+PNG read. A frame's panorama is read back from its device first.
 """
 
 from __future__ import annotations
@@ -28,6 +28,14 @@ def save_png(path: str, img: np.ndarray) -> None:
         Image.fromarray(img.astype(np.uint8)).save(path)
     else:
         Image.fromarray(img.astype(np.uint8), mode="L").save(path)
+
+
+def load_png(path: str) -> np.ndarray:
+    """A PNG as (H, W, 3) u8 RGB (frame360_stereo.py:99-104's read)."""
+    from PIL import Image
+
+    with Image.open(path) as img:
+        return np.asarray(img.convert("RGB"))
 
 
 def depth_to_u8(depth_mm: np.ndarray, max_mm: float = 6000.0) -> np.ndarray:

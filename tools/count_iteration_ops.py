@@ -1,6 +1,8 @@
 """Count the aten operations one Gauss-Newton / Levenberg-Marquardt
 iteration of the port's aligners dispatches, by part: the sweep, the
-well-posedness Cholesky, the 6x6 solve with the SE(3) update. Each
+well-posedness Cholesky, the 6x6 solve with the SE(3) update; and those of
+the stereo plane program (core/frame360_stereo.py) by stage, with the
+segmentation's and the refinement's sweeps (one host sync each). Each
 non-view aten operation is about one kernel launch on the card, and the
 eager aligners are bound by issuing them, so the count prices an
 iteration's host cost without a card. Runs on the CPU (no GPU needed):
@@ -10,7 +12,9 @@ iteration's host cost without a card. Runs on the CPU (no GPU needed):
 The pinhole case is the 8-camera robot-frame sweep at its L0 (8 x 240 x
 320, PHOTO_DEPTH, tools/synthetic_rig.py's room), the sphere case the
 exact-gather sweep of one 1920 x 320 pair (seeded random images: the
-count does not depend on the data).
+count does not depend on the data). The stereo program runs on the room
+ray-cast as a 1024 x 180 stereo panorama (tools/synthetic_rig.py): its
+sweeps run to a fixed point, so its count depends on the data.
 """
 
 from __future__ import annotations
@@ -63,6 +67,30 @@ def step_ops(H, g, pseudo: bool) -> dict:
     return {"well-posed Cholesky": count(lambda: linalg6.spd_well_posed(H, 1e-3)), "solve + SE(3) update": count(solve)}
 
 
+def stereo_program() -> dict:
+    """{stage: (aten ops, host-synced sweeps)} of the stereo plane program."""
+    from rgbd360_torch.core import frame360_stereo as st
+    from rgbd360_torch.ops import normals, plane_stats, planes_seg
+
+    rgb, depth = rig.raycast_room_stereo(rig.stereo_pose())
+    xyz = st.stereo_cloud(torch.from_numpy(np.clip(depth * 1000.0, 0, 65535).astype(np.uint16)).float() * 1e-3)[None]
+    parts = {}
+
+    def stage(name, fn):
+        with CountOps() as c:
+            out = fn()
+        # the flood fill's and the refinement's sweeps each end on one any()
+        parts[name] = (sum(c.counts.values()), c.counts["any"] if name in ("segment", "refine") else 0)
+        return out
+
+    n = stage("normals", lambda: normals.organized_normals(xyz, max_depth_change=0.05))
+    pre = stage("segment", lambda: planes_seg.segment_planes(xyz, n, angular_threshold=0.05, distance_threshold=0.05))
+    lab = stage("refine", lambda: planes_seg.refine_plane_labels(pre, xyz, n, distance_threshold=0.05,
+                                                                min_inliers=st.MIN_INLIERS_STEREO))
+    stage("stats", lambda: plane_stats.sensor_plane_stats(xyz, torch.from_numpy(rgb)[None], lab, pre))
+    return parts
+
+
 def main() -> int:
     torch.set_num_threads(2)
     rts = construction_specs().astype(np.float32)
@@ -93,6 +121,9 @@ def main() -> int:
     for name, parts in (("pinhole robot-frame iteration (8 x 240 x 320)", pinhole),
                         ("sphere iteration (1 x 320 x 1920, exact gather)", sphere)):
         print(f"{name}: {sum(parts.values())} aten ops: " + ", ".join(f"{k} {v}" for k, v in parts.items()))
+    stereo = stereo_program()
+    print(f"stereo plane program (1 x 180 x 1024, the room): {sum(n for n, _s in stereo.values())} aten ops: "
+          + ", ".join(f"{k} {n}" + (f" ({s} sweeps)" if s else "") for k, (n, s) in stereo.items()))
     return 0
 
 

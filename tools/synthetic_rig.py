@@ -100,9 +100,16 @@ def raycast_room_sensor(rt, w=320, h=240, box=DEFAULT_BOX, obstacles=()):
     u, v = np.meshgrid(np.arange(w), np.arange(h))
     d_cam = np.stack([(u - cx) / fx, (v - cy) / fy, np.ones_like(u, float)], -1)
     R, t = rt[:3, :3].astype(np.float64), rt[:3, 3].astype(np.float64)
-    d_world = d_cam @ R.T
-    o = t
+    best_s, face_id, hit_pt = _raycast(t, d_cam @ R.T, box, obstacles)
+    depth_m = best_s * d_cam[..., 2]  # z-depth (d_cam z == 1)
+    depth_mm = np.clip(np.nan_to_num(depth_m) * 1000.0, 0, 60000).astype(np.uint16)
+    return _shade(hit_pt, face_id), depth_mm
 
+
+def _raycast(o, d_world, box, obstacles):
+    """Nearest hit of the rays o + s d_world (s > 0.05) on the box interior
+    and the obstacles' faces: (s (h,w), face id (h,w), hit point (h,w,3))."""
+    h, w = d_world.shape[:2]
     best_s = np.full((h, w), np.inf)
     face_id = np.full((h, w), -1)
     hit_pt = np.zeros((h, w, 3))
@@ -114,7 +121,7 @@ def raycast_room_sensor(rt, w=320, h=240, box=DEFAULT_BOX, obstacles=()):
             da = d_world[..., ax]
             with np.errstate(divide="ignore", invalid="ignore"):
                 s = (val - o[ax]) / da
-            p = o + s[..., None] * d_world
+                p = o + s[..., None] * d_world
             inside = np.ones((h, w), bool)
             for ax2, (lo, hi) in zip((0, 1, 2), ((x0, x1), (y0, y1), (z0, z1))):
                 if ax2 == ax:
@@ -125,9 +132,11 @@ def raycast_room_sensor(rt, w=320, h=240, box=DEFAULT_BOX, obstacles=()):
             face_id = np.where(ok, fid, face_id)
             hit_pt = np.where(ok[..., None], p, hit_pt)
             fid += 1
+    return best_s, face_id, hit_pt
 
-    depth_m = best_s * d_cam[..., 2]  # z-depth (d_cam z == 1)
-    depth_mm = np.clip(np.nan_to_num(depth_m) * 1000.0, 0, 60000).astype(np.uint16)
+
+def _shade(hit_pt, face_id):
+    """The room's texture at the hit points: (h,w,3) u8 BGR."""
     a = hit_pt[..., (0, 1)].sum(-1)
     b = hit_pt[..., (1, 2)].sum(-1)
     gray = (
@@ -137,8 +146,60 @@ def raycast_room_sensor(rt, w=320, h=240, box=DEFAULT_BOX, obstacles=()):
         + 15 * np.sin(11.0 * a)
     ).clip(0, 255)
     tint = _FACE_TINT[np.maximum(face_id, 0) % 6]
-    rgb = (gray[..., None] * tint).clip(0, 255).astype(np.uint8)
-    return rgb, depth_mm
+    return (gray[..., None] * tint).clip(0, 255).astype(np.uint8)
+
+
+# the stereo panorama (rgbd360_torch/core/frame360_stereo.py): 1024 columns
+# over 2 pi, and start_phi = 166 centres phi = 0 on row 90 of 180, so the
+# rows hold the symmetric +-31.6 deg band, the ~60 deg band Frame360's
+# 1920 x 320 keeps
+STEREO_H, STEREO_W, STEREO_START_PHI = 180, 1024, 166
+
+
+def stereo_pose(position=(0.0, 0.6, -0.3)) -> np.ndarray:
+    """A stereo device in the room: its y axis (the panorama's elevation)
+    along the room's vertical x axis, its z axis along the room's z."""
+    pose = np.eye(4)
+    pose[:3, :3] = [[0.0, 1.0, 0.0], [-1.0, 0.0, 0.0], [0.0, 0.0, 1.0]]
+    pose[:3, 3] = position
+    return pose
+
+
+def raycast_room_stereo(pose, h=STEREO_H, w=STEREO_W, start_phi=STEREO_START_PHI, box=DEFAULT_BOX,
+                        obstacles=OBSTACLES):
+    """Ray-cast the room through a stereo panorama at ``pose``, in the
+    backprojection convention of Frame360_stereo.h:454-517: row r, column c
+    look along phi = (r + start_phi) 2pi/w - pi/2, theta = c 2pi/w - pi,
+    direction (sin theta cos phi, sin phi, cos theta cos phi), and the depth
+    is the range along it. Returns (rgb (h,w,3) u8 BGR, depth (h,w) f32
+    metres, 0 where no surface)."""
+    step = 2.0 * np.pi / w
+    phi = (np.arange(h) + start_phi) * step - np.pi / 2
+    theta = np.arange(w) * step - np.pi
+    d_cam = np.stack(np.broadcast_arrays(
+        np.sin(theta)[None, :] * np.cos(phi)[:, None], np.sin(phi)[:, None],
+        np.cos(theta)[None, :] * np.cos(phi)[:, None]), axis=-1)
+    pose = np.asarray(pose, np.float64)
+    best_s, face_id, hit_pt = _raycast(pose[:3, 3], d_cam @ pose[:3, :3].T, box, obstacles)
+    depth = np.where(np.isfinite(best_s), best_s, 0.0).astype(np.float32)
+    return _shade(hit_pt, face_id), depth
+
+
+def perturbed_rig(seed: int = 0, deg: float = 1.0, mm: float = 5.0) -> np.ndarray:
+    """The construction-spec rig with each of sensors 1-7 turned by ``deg``
+    about a random axis and shifted by N(0, ``mm``) per axis, drawn from
+    np.random.default_rng(seed): a rig to calibrate (the sensors' true
+    poses; its calibration root still holds the construction specs)."""
+    rng = np.random.default_rng(seed)
+    rts = construction_specs()
+    for s in range(1, 8):
+        axis = rng.normal(size=3)
+        axis /= np.linalg.norm(axis)
+        K = np.array([[0.0, -axis[2], axis[1]], [axis[2], 0.0, -axis[0]], [-axis[1], axis[0], 0.0]])
+        a = np.deg2rad(deg)
+        rts[s, :3, :3] = (np.eye(3) + np.sin(a) * K + (1.0 - np.cos(a)) * K @ K) @ rts[s, :3, :3]
+        rts[s, :3, 3] += rng.normal(0.0, mm * 1e-3, 3)
+    return rts
 
 
 def synthetic_clams_model(seed: int, bins_xy=(80, 80), n_depth: int = 5, spread: float = 0.05) -> DepthDistortionModel:
@@ -238,6 +299,29 @@ def write_sequence(out: str, rts: np.ndarray, frames: int = 6, loops: float = 0.
         for pose in poses:
             f.write(" ".join(f"{v:.9g}" for v in pose.ravel()) + "\n")
     return np.stack(poses)
+
+
+def control_plane_observations(seed: int = 0, planes_per_pair: int = 6, noise: float = 1e-3):
+    """Seeded control planes of perturbed_rig(seed): random world planes
+    seen by each adjacent sensor pair (the 7-0 ring pair included), each in
+    its sensor's frame and mrpt's offset convention (d = d_world + n_world .
+    t_sensor), the normals with N(0, ``noise``) per axis. A list of
+    PlaneCorrespondences.add arguments (s1, s2, n1, d1, n2, d2)."""
+    rng = np.random.default_rng(seed)
+    true = perturbed_rig(seed)
+    out = []
+    for s in range(8):
+        s2 = (s + 1) % 8
+        for _ in range(planes_per_pair):
+            n_w = rng.normal(size=3)
+            n_w /= np.linalg.norm(n_w)
+            d_w = rng.uniform(-4.0, -1.0)
+            obs = []
+            for k in (s, s2):
+                n = true[k, :3, :3].T @ n_w + rng.normal(0.0, noise, 3)
+                obs += [n / np.linalg.norm(n), d_w + n_w @ true[k, :3, 3]]
+            out.append((s, s2, *obs))
+    return out
 
 
 def relative_pose_errors(trajectory, ground_truth) -> np.ndarray:
