@@ -6,7 +6,8 @@ spherical photo+depth pair registration of the bundled golden pair
 batch 8, the odometry app over raw 8-sensor captures (load, undistort,
 stitch, planes, register), the registration methods (the 8-camera pinhole
 registration among them), the two SLAM apps and the batched sphere-graph
-registration over a 40-frame loop — and checks them end to end:
+registration over a 40-frame loop, live capture, the MRPT rawlog loader,
+the live map viewer and the pair mesh — and checks them end to end:
 
   1. a CUDA device is present; print the card's name and power limit;
   2. build the CUDA kernels from rgbd360_torch/csrc (nvcc, sm_90a);
@@ -104,6 +105,35 @@ registration over a 40-frame loop — and checks them end to end:
      program's warm ms; tof_calibrator --demo on the card, its estimate
      within 1e-5 of the CPU's and its ground-truth error no worse than the
      JAX demo's;
+  5k. live capture: the grabber app (apps/grabber.py --replay) copies the
+     6-frame dataset, every .bin byte-equal to its source; the online
+     odometry app (apps/online_odometry.py) on the card over the copy:
+     every pair within the ground-truth bound, its first 3 poses equal to
+     5b's odometry app's within ONLINE_ODOMETRY_T, the L0-L2 sweeps carried
+     by warp_gather_batched and each exact-final by one DUAL launch, ms per
+     frame; then --synthetic 3;
+  5l. an MRPT rawlog of RAWLOG_FRAMES frames (4 sensors of 320 x 240 ray-
+     cast in the room, u8 BGR raw CImage and f32 metres, and a LASER scan
+     per frame the loader skips), written with the port's writer
+     (tools/synthetic_rig.write_rawlog_sequence), loaded by
+     apps/load_rawlog.py on the card and on the CPU in its images, cloud
+     and save modes: the panoramas equal but for STITCH_DIFF_LIMIT of their
+     pixels (5b's rule), the undistorted sensor clouds within
+     RAWLOG_CLOUD_T, the saved planes within 5c's plane limits, ms per
+     frame;
+  the live map viewer: kf_sphere_slam with --live-view --live-port 0 over
+     the first LIVE_FRAMES frames of the loop, live.json fetched over
+     127.0.0.1 while the app runs and read after it: one trajectory entry
+     per keyframe of the map;
+  5m. the pair mesh (parallel/mesh.py): align_batch_sharded over
+     make_mesh() on the golden pair at batch 8, every field bit-equal to
+     phase 4's align_batch and its sweeps carried by the kernels; the dry
+     run (parallel/dryrun.py) over [cuda:0, cuda:0], two shards of 4 pairs
+     in a thread each: every leg bit-equal to its unsplit call, the launches
+     counted across both threads equal to the sweeps, the loop-closure leg
+     on the FULL form, the sharded prefilter equal to the unsplit one; the
+     ms per batch of the split against the unsplit call (a record); the
+     distinct cards each mesh spanned;
   6. timing with CUDA events: warm align throughput on the default
      (windowed kernel) and the exact route, in alternating rounds, and each
      kernel beside its plain version at the L0 shape (the multi-anchor pass
@@ -216,6 +246,16 @@ FITNESS_LIMIT = 1.5e-3
 STEREO_TIMED = 10
 # tof_calibrator --demo: the JAX app's printed ground-truth error (|dR|, |dt|)
 TOF_DEMO_GT = (2.51e-5, 3.37e-4)
+# live capture (5k): the online app's poses against the odometry app's (5b);
+# both run the same per-frame program on the same captures
+ONLINE_ODOMETRY_T = 1e-6
+# the MRPT rawlog (5l): frames of 4 observations; the undistorted sensor
+# clouds card vs CPU (tests/test_torch_rawlog.py: the port's CPU cloud is
+# within 1.2e-6 m of JAX's; the card's bilateral weights may round apart)
+RAWLOG_FRAMES = 3
+RAWLOG_CLOUD_T = 1e-4  # metres
+MESH_ROUNDS = 2  # 5m: split against unsplit, alternating
+LIVE_FRAMES = 8  # the live viewer run: the first frames of the 40-frame loop
 
 
 def card_line() -> str:
@@ -250,9 +290,10 @@ def _stage_ms(text: str, name: str) -> list:
     return [float(ms) for ms in re.findall(rf"^{re.escape(name)} took ([0-9.]+) ms$", text, re.M)]
 
 
-def odometry_phase(dev, card, calib_root, seq, gt) -> dict:
+def odometry_phase(dev, card, calib_root, seq, gt) -> tuple:
     """Phase 5b, over the first DENSE_ODOMETRY_FRAMES frames of ``seq``.
-    Returns the launch counts of each route's run."""
+    Returns the launch counts of each route's run and the default route's
+    trajectory."""
     from rgbd360_torch.apps import odometry
     from rgbd360_torch.core.frame360 import Frame360
     from rgbd360_torch.io.calib import Calib360
@@ -280,7 +321,7 @@ def odometry_phase(dev, card, calib_root, seq, gt) -> dict:
         if n_differ > STITCH_DIFF_LIMIT * differ.numel():
             raise AssertionError(f"the card's stitch differs from the CPU's at {n_differ} pixels")
 
-        route_launches = {}
+        route_launches, route_traj = {}, {}
         for route, pipelined in (("default", True), ("single-buffer", False)):
             out = os.path.join(tmp, f"out_{route}")
             buf = io.StringIO()
@@ -321,7 +362,8 @@ def odometry_phase(dev, card, calib_root, seq, gt) -> dict:
                     and launches["warp_gather_batched_multi"] == sweeps["exact_final_dual"] == DENSE_ODOMETRY_FRAMES - 1):
                 raise AssertionError(f"odometry {route}: the sweeps did not run through {kernel}: {launches} vs {sweeps}")
             route_launches[route] = launches
-    return route_launches
+            route_traj[route] = traj
+    return route_launches, route_traj["default"]
 
 
 def planes_phase(dev, card, calib_root, seq) -> None:
@@ -1077,6 +1119,254 @@ def stereo_phase(dev, card) -> None:
         raise AssertionError("tof_calibrator --demo: the card's estimate differs from the CPU's or misses the truth")
 
 
+def capture_phase(dev, card, calib_root, seq, gt, dense_traj) -> dict:
+    """Phase 5k: live capture. The grabber app replays the 6-frame dataset
+    into a copy (every .bin byte-equal to its source); the online odometry
+    app runs on the card over the copy: every pair within the ground-truth
+    bound, the first DENSE_ODOMETRY_FRAMES poses equal to the odometry app's
+    dense poses of 5b within ONLINE_ODOMETRY_T, the L0-L2 sweeps carried by
+    warp_gather_batched and each exact-final by one DUAL launch; then
+    --synthetic 3. Returns the launch counts of the online run."""
+    import filecmp
+
+    from rgbd360_torch.apps import grabber, online_odometry
+    from rgbd360_torch.ops import photoicp, warp_gather
+    from tools import synthetic_rig as rig
+
+    with tempfile.TemporaryDirectory() as tmp:
+        copy, out = os.path.join(tmp, "copy"), os.path.join(tmp, "out")
+        rc, text, grab_ms = _run_app(grabber.main, ["--replay", seq, "--out", copy])
+        names = sorted(f for f in os.listdir(seq) if f.endswith(".bin"))
+        same = [filecmp.cmp(os.path.join(seq, n), os.path.join(copy, n), shallow=False) for n in names]
+        print(f"grabber --replay: {text.strip()}; {sum(same)} of {len(names)} .bin byte-equal to the source "
+              f"({grab_ms:.1f} ms)", flush=True)
+        if rc != 0 or len(names) != ODOMETRY_FRAMES or not all(same):
+            raise AssertionError(f"grabber --replay: rc {rc}, {sum(same)} of {len(names)} files equal")
+
+        warp_gather.reset_launch_counts()
+        photoicp.reset_sweep_counts()
+        rc, text, app_ms = _run_app(online_odometry.main,
+                                    ["--dataset", copy, "--calib-root", calib_root, "--out", out, "--device", str(dev)])
+        launches, sweeps = dict(warp_gather.LAUNCHES), dict(photoicp.SWEEPS)
+        traj = np.loadtxt(os.path.join(out, "trajectory_online.txt")).reshape(-1, 4, 4)
+    print("".join(line + "\n" for line in text.splitlines() if line.startswith("frame ")), end="")
+    errs = rig.relative_pose_errors(traj, gt)
+    vs_dense = float(np.abs(traj[:len(dense_traj)] - dense_traj).max())
+    pairs = ODOMETRY_FRAMES - 1
+    print(f"[{card}] online_odometry over {ODOMETRY_FRAMES} replayed frames: error vs ground truth max "
+          f"{errs[:, 0].max() * 1000:.3f} mm, {errs[:, 1].max():.4f} deg (bound {rig.GT_T * 1000:.0f} mm, "
+          f"{rig.GT_ROT_DEG} deg); first {len(dense_traj)} poses vs the odometry app's (5b) max |diff| {vs_dense:.3g} "
+          f"(limit {ONLINE_ODOMETRY_T}); {app_ms / ODOMETRY_FRAMES:.1f} ms per frame, synchronised "
+          f"({app_ms:.1f} ms the whole app)", flush=True)
+    print(f"launches {launches} sweeps {sweeps}", flush=True)
+    if rc != 0 or len(traj) != ODOMETRY_FRAMES:
+        raise AssertionError(f"online_odometry: rc {rc}, {len(traj)} poses")
+    if not ((errs[:, 0] < rig.GT_T).all() and (errs[:, 1] < rig.GT_ROT_DEG).all()):
+        raise AssertionError(f"online_odometry: relative poses outside the ground-truth bound: {errs}")
+    if vs_dense > ONLINE_ODOMETRY_T:
+        raise AssertionError(f"online_odometry: poses {vs_dense} from the odometry app's")
+    if not (launches["warp_gather_batched"] == sweeps["windowed"] > 0 and launches["warp_gather_single"] == 0
+            and launches["warp_gather_batched_multi"] == sweeps["exact_final_dual"] == pairs):
+        raise AssertionError(f"online_odometry: the sweeps did not run through the kernels: {launches} vs {sweeps}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rc, text, ms = _run_app(online_odometry.main, ["--synthetic", "3", "--calib-root", calib_root, "--out", tmp,
+                                                        "--device", str(dev)])
+        n_poses = len(np.loadtxt(os.path.join(tmp, "trajectory_online.txt")).reshape(-1, 4, 4))
+    print(f"online_odometry --synthetic 3: rc {rc}, {n_poses} poses, {text.strip().splitlines()[-1]} "
+          f"({ms:.1f} ms)", flush=True)
+    if rc != 0 or n_poses != 3:
+        raise AssertionError(f"online_odometry --synthetic 3: rc {rc}, {n_poses} poses")
+    return launches
+
+
+def _panorama_diff(dir_a: str, dir_b: str, n: int) -> tuple:
+    """(pixels that differ, pixels) of frame n's panorama PNGs, rgb or depth."""
+    from rgbd360_torch.utils.viz import load_png
+
+    png = lambda d, kind: load_png(os.path.join(d, f"{kind}_{n:04d}.png"))
+    diff = (png(dir_a, "rgb") != png(dir_b, "rgb")).any(-1) | (png(dir_a, "depth") != png(dir_b, "depth")).any(-1)
+    return int(diff.sum()), diff.size
+
+
+def rawlog_phase(dev, card, calib_root) -> None:
+    """Phase 5l: an MRPT rawlog of RAWLOG_FRAMES frames (4 sensors of 320 x
+    240, u8 BGR raw CImage and f32 metres, plus one LASER scan per frame)
+    written with the port's writer, loaded by apps/load_rawlog.py on the
+    card and on the CPU in its three modes: the panoramas equal but at the
+    stitch's sampling boundaries (STITCH_DIFF_LIMIT, as 5b), the undistorted
+    sensor clouds within RAWLOG_CLOUD_T, the saved keyframes' planes within
+    the plane parity limits of 5c."""
+    from rgbd360_torch.apps import load_rawlog
+    from rgbd360_torch.core.pbmap import load_pbmap
+    from rgbd360_torch.io.calib import Calib360
+    from tools import synthetic_rig as rig
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "room.rawlog")
+        t0 = time.perf_counter()
+        rig.write_rawlog_sequence(path, rig.construction_specs(), frames=RAWLOG_FRAMES)
+        print(f"rawlog: {RAWLOG_FRAMES} frames of 4 RGBD observations and a LASER scan written in "
+              f"{time.perf_counter() - t0:.2f} s ({os.path.getsize(path)} bytes)", flush=True)
+        out = {}
+        for mode in ("images", "cloud", "save"):
+            for where in (str(dev), "cpu"):
+                out[mode, where] = os.path.join(tmp, f"{mode}_{where}")
+                rc, text, ms = _run_app(load_rawlog.main, [path, "--out", out[mode, where], "--mode", mode,
+                                                           "--calib-root", calib_root, "--device", where])
+                if rc != 0 or f"processed {RAWLOG_FRAMES} omnidirectional frames" not in text:
+                    raise AssertionError(f"load_rawlog --mode {mode} --device {where}: rc {rc}\n{text}")
+                if where != "cpu":
+                    print(f"[{card}] load_rawlog --mode {mode} on the card: {ms / RAWLOG_FRAMES:.1f} ms per frame, "
+                          f"synchronised ({ms:.1f} ms the whole app)", flush=True)
+        worst = 0
+        for n in range(RAWLOG_FRAMES):
+            n_diff, n_px = _panorama_diff(out["images", str(dev)], out["images", "cpu"], n)
+            worst = max(worst, n_diff)
+            if n_diff > STITCH_DIFF_LIMIT * n_px:
+                raise AssertionError(f"load_rawlog frame {n}: the card's panorama differs at {n_diff} pixels")
+        print(f"load_rawlog images, card vs CPU: at most {worst} of {320 * 1920} panorama pixels differ "
+              f"(limit {int(STITCH_DIFF_LIMIT * 320 * 1920)})", flush=True)
+
+        # the cloud mode's clouds, computed as the app does, card against CPU
+        calib = Calib360.load(calib_root)
+        dev_max, nan_diff = 0.0, 0
+        for frame_no, group in load_rawlog.rgbd360_frames(path):
+            clouds = []
+            for where in (dev, "cpu"):
+                frame = load_rawlog.frame360_from_obs(calib, group, frame_no, where)
+                frame.undistort()
+                clouds.append(frame.build_sphere_cloud()[0])
+            fin = np.isfinite(clouds[0]) & np.isfinite(clouds[1])
+            nan_diff += int((np.isfinite(clouds[0]) != np.isfinite(clouds[1])).any(1).sum())
+            dev_max = max(dev_max, float(np.abs(clouds[0][fin] - clouds[1][fin]).max()))
+        n_pts = clouds[0].shape[0]
+        print(f"load_rawlog cloud, card vs CPU: max deviation {dev_max:.3g} m (limit {RAWLOG_CLOUD_T}), "
+              f"{nan_diff} of {RAWLOG_FRAMES * n_pts} points valid on one side only", flush=True)
+        if dev_max > RAWLOG_CLOUD_T or nan_diff > STITCH_DIFF_LIMIT * RAWLOG_FRAMES * n_pts:
+            raise AssertionError(f"load_rawlog cloud: {dev_max} m, {nan_diff} validity differences")
+
+        for n in range(RAWLOG_FRAMES):
+            card_pb = load_pbmap(os.path.join(out["save", str(dev)], f"spherePlanes_{n}.pbmap.npz"))
+            cpu_pb = load_pbmap(os.path.join(out["save", "cpu"], f"spherePlanes_{n}.pbmap.npz"))
+            if not len(card_pb.planes) == len(cpu_pb.planes) > 0:
+                raise AssertionError(f"load_rawlog save frame {n}: {len(card_pb.planes)} planes on the card, "
+                                     f"{len(cpu_pb.planes)} on the CPU")
+            pairs = list(zip(card_pb.planes, cpu_pb.planes))
+            dn = max(float(np.abs(a.normal - b.normal).max()) for a, b in pairs)
+            dd = max(abs(a.d - b.d) for a, b in pairs)
+            da = max(abs(a.area_hull - b.area_hull) / b.area_hull for a, b in pairs)
+            print(f"load_rawlog save frame {n}: {len(card_pb.planes)} planes on the card and the CPU; normal {dn:.3g}, "
+                  f"d {dd:.3g} m, hull area {da:.3g} relative", flush=True)
+            if dn > PLANE_NORMAL_LIMIT or dd > PLANE_D_LIMIT or da > PLANE_AREA_LIMIT:
+                raise AssertionError(f"load_rawlog save frame {n}: planes outside the parity limits")
+
+
+def mesh_phase(dev, card, operands, main_res) -> dict:
+    """Phase 5m: the pair mesh. align_batch_sharded over make_mesh() on the
+    golden pair at batch 8 bit-equal to phase 4's align_batch; the dry run
+    over [dev, dev] (two shards of 4 pairs, a thread each), every leg bit-
+    equal to its unsplit call and its launches equal to its sweeps; the ms
+    per batch of the split against the unsplit call. Returns the launch
+    counts of the golden split, the dry run's kernel leg and its loop-
+    closure leg."""
+    from rgbd360_torch.ops import photoicp, warp_gather
+    from rgbd360_torch.parallel import dryrun
+    from rgbd360_torch.parallel import mesh as pmesh
+    from rgbd360_torch.parallel.batch import align_batch
+
+    mesh = pmesh.make_mesh()
+    mesh = mesh[:max(d for d in (1, 2, 4, 8) if d <= len(mesh))]  # the cards that divide the batch
+    warp_gather.reset_launch_counts()
+    photoicp.reset_sweep_counts()
+    res = pmesh.align_batch_sharded(mesh, *operands, photoicp.PHOTO_DEPTH, N_LEVELS)
+    torch.cuda.synchronize()
+    golden = (dict(warp_gather.LAUNCHES), dict(photoicp.SWEEPS))
+    dryrun.assert_same_result(res, main_res, "mesh golden")
+    print(f"[{card}] align_batch_sharded over make_mesh() ({len(mesh)} shard(s), {len(set(mesh))} distinct card(s)) "
+          f"on the golden pair, B={BATCH}: bit-equal to phase 4's align_batch, signature "
+          f"{tuple(res.num_iterations[0].tolist())}; launches {golden[0]} sweeps {golden[1]}", flush=True)
+    if not (golden[0]["warp_gather_batched"] == golden[1]["windowed"] > 0
+            and golden[0]["warp_gather_batched_multi"] == golden[1]["exact_final_dual"] == len(mesh)):
+        raise AssertionError(f"mesh golden: the sweeps did not run through the kernels: {golden}")
+
+    report = dryrun.dryrun_multichip(2, dev)
+    lc, kernel = report["lc"], report["kernel"]
+    print(f"[{card}] dryrun_multichip over [{dev}, {dev}] (1 distinct card): tracking leg iterations "
+          f"{report['tracking']['iterations']}; loop-closure leg launches {lc['launches']} sweeps {lc['sweeps']}; "
+          f"kernel leg launches {kernel['launches']} sweeps {kernel['sweeps']}", flush=True)
+    if not (lc["launches"]["warp_gather_batched_multi"] == lc["sweeps"]["full_coverage"] > 0
+            and lc["launches"]["warp_gather_batched"] == lc["sweeps"]["windowed"] == 0):
+        raise AssertionError(f"mesh LC leg: the full-coverage sweeps did not launch the FULL form: {lc}")
+    if not (kernel["launches"]["warp_gather_batched"] == kernel["sweeps"]["windowed"] > 0
+            and kernel["launches"]["warp_gather_batched_multi"] == kernel["sweeps"]["exact_final_dual"] == 2):
+        raise AssertionError(f"mesh kernel leg: the sweeps did not run through the kernels: {kernel}")
+
+    # split against unsplit on the golden batch, in turns
+    split_mesh = [dev, dev]
+    runs = {"split [dev, dev]": lambda: pmesh.align_batch_sharded(split_mesh, *operands, photoicp.PHOTO_DEPTH, N_LEVELS),
+            "unsplit": lambda: align_batch(*operands, photoicp.PHOTO_DEPTH, N_LEVELS)}
+    samples = {name: [] for name in runs}
+    for k in range(MESH_ROUNDS):
+        for name in (list(runs) if k % 2 == 0 else list(runs)[::-1]):
+            samples[name].append(cuda_ms(runs[name], TIMED_ALIGNS))
+    print(f"[{card}] golden align B={BATCH}, median of {MESH_ROUNDS} alternating rounds of {TIMED_ALIGNS}: "
+          + "; ".join(f"{name} {np.median(ms):.3f} ms/batch" for name, ms in samples.items())
+          + f" (a record, no claim); samples {json.dumps(samples)}", flush=True)
+    return {"mesh_golden": golden[0], "mesh_split": kernel["launches"], "mesh_lc": lc["launches"]}
+
+
+def live_view_phase(dev, card, calib_root, seq) -> None:
+    """The live map viewer: kf_sphere_slam over the first LIVE_FRAMES frames
+    of the loop with --live-view DIR --live-port 0. live.json is fetched
+    from the viewer's URL on 127.0.0.1 while the app runs (a poller thread
+    reads the URL the app prints), and read after the run: its trajectory
+    has one entry per keyframe of the map."""
+    import threading
+    import urllib.request
+
+    from rgbd360_torch.apps import kf_sphere_slam
+
+    with tempfile.TemporaryDirectory() as tmp:
+        short, live = os.path.join(tmp, "seq"), os.path.join(tmp, "live")
+        os.mkdir(short)
+        for n in range(1, LIVE_FRAMES + 1):
+            os.symlink(os.path.join(seq, f"sphere_images_{n}.bin"), os.path.join(short, f"sphere_images_{n}.bin"))
+        buf, fetched, done = io.StringIO(), [], threading.Event()
+
+        def poll():
+            while not done.is_set():
+                found = re.search(r"^live viewer: (http://127\.0\.0\.1:\d+)/live\.html$", buf.getvalue(), re.M)
+                if found:
+                    try:
+                        with urllib.request.urlopen(found.group(1) + "/live.json", timeout=5) as r:
+                            fetched.append(len(json.loads(r.read())["traj"]))
+                    except OSError:
+                        pass  # the server closes as the app ends
+                done.wait(0.05)
+
+        poller = threading.Thread(target=poll, name="live_json_poller")
+        poller.start()
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                slam = kf_sphere_slam.run([short, "--calib-root", calib_root, "--device", str(dev),
+                                           "--live-view", live, "--live-port", "0"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1000.0
+        finally:
+            done.set()
+            poller.join()
+        with open(os.path.join(live, "live.json")) as f:
+            final = json.load(f)
+    n_kf = len(slam.world)
+    print(f"[{card}] kf_sphere_slam --live-view over {LIVE_FRAMES} frames: {n_kf} keyframes; live.json fetched "
+          f"{len(fetched)} times over 127.0.0.1 while the app ran (trajectory lengths {sorted(set(fetched))}), "
+          f"final trajectory {len(final['traj'])} entries; {ms:.1f} ms the whole app", flush=True)
+    if not fetched or fetched != sorted(fetched) or max(fetched) > n_kf or len(final["traj"]) != n_kf:
+        raise AssertionError(f"live view: fetched {fetched}, final {len(final['traj'])}, keyframes {n_kf}")
+
+
 def gather_bound_ms(*tensors) -> float:
     """Least time to move ``tensors`` once each through HBM, in ms."""
     return sum(t.numel() * t.element_size() for t in tensors) / HBM_BYTES_PER_S * 1000.0
@@ -1183,6 +1473,7 @@ def main() -> int:
     print(f"launches {launches} sweeps {sweeps}", flush=True)
     if spread > 1e-6:
         raise AssertionError(f"identical pairs disagree: pose spread {spread}")
+    main_res = res  # held against the pair mesh's split in 5m
     if not (launches["warp_gather_batched"] == sweeps["windowed"] > 0
             and launches["warp_gather_batched_multi"] == sweeps["exact_final_dual"] == 1):
         raise AssertionError(f"the main path did not run through the kernels: {launches} vs {sweeps}")
@@ -1237,10 +1528,14 @@ def main() -> int:
         t0 = time.perf_counter()
         gt = rig.write_sequence(seq, rig.write_calib_root(calib_root), frames=ODOMETRY_FRAMES)
         print(f"odometry dataset: {ODOMETRY_FRAMES} frames written in {time.perf_counter() - t0:.2f} s", flush=True)
-        odometry_launches = odometry_phase(dev, card, calib_root, seq, gt)
+        odometry_launches, dense_traj = odometry_phase(dev, card, calib_root, seq, gt)
         planes_phase(dev, card, calib_root, seq)
         planes_launches = with_planes_phase(dev, card, calib_root, seq, gt)
         methods_launches, occ1_launches = methods_phase(dev, card, calib_root, seq, gt)
+        t0 = time.perf_counter()
+        online_launches = capture_phase(dev, card, calib_root, seq, gt, dense_traj)
+        rawlog_phase(dev, card, calib_root)
+        print(f"phases 5k-5l: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- 5e-5f. the SLAM loop -----------------------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -1252,12 +1547,18 @@ def main() -> int:
         slam_launches = slam_phase(dev, card, calib_root, seq, gt)
         kf_slam_launches = kf_slam_phase(dev, card, calib_root, seq)
         graph_launches = graph_phase(dev, card, calib_root, seq, gt)
+        live_view_phase(dev, card, calib_root, seq)
 
     # -- 5i-5j. the calibration suite, the stereo frame and the ToF calibrator ------------
     t0 = time.perf_counter()
     calibration_launches = calibration_phase(dev, card)
     stereo_phase(dev, card)
     print(f"phases 5i-5j: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- 5m. the pair mesh ----------------------------------------------------------------
+    t0 = time.perf_counter()
+    mesh_launches = mesh_phase(dev, card, (gray_src, depth_src, gray_trg, depth_trg, eye), main_res)
+    print(f"phase 5m: {time.perf_counter() - t0:.1f} s", flush=True)
     # each path's launch counts, reset just before the path ran
     path_launches = {
         "golden_align": launches, "golden_align_single_buffer": single_launches,
@@ -1267,6 +1568,7 @@ def main() -> int:
         "slam_loop": slam_launches, "kf_slam_loop": kf_slam_launches,
         "methods_register": methods_launches, "methods_register_occ1": occ1_launches,
         "register_graph_sphere": graph_launches, "eval_calibration": calibration_launches,
+        "online_odometry": online_launches, **mesh_launches,
     }
 
     # -- 6. timing -------------------------------------------------------------------

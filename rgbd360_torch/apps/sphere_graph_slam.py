@@ -12,14 +12,16 @@ plane statistics in one device program, the host plane fit on a worker
 thread); the map keeps each keyframe's panorama on the device. Runs on the
 card unless --device names another device. Each frame's line ends with its
 wall time (the loop iteration, the next frame's pipeline work included).
+--live-view DIR serves the map as it grows (utils/live_viewer.py: DIR/
+live.html polls DIR/live.json, rewritten at every keyframe) from an HTTP
+server on 127.0.0.1:--live-port (0 = ephemeral).
 
-Not ported: --live-view (utils/live_viewer.py comes with the periphery
-slice; --out writes the offline map.html) and the compile prewarm of the
-JAX app (the port compiles nothing).
+Not ported: the compile prewarm of the JAX app (the port compiles
+nothing).
 
 Usage: python -m rgbd360_torch.apps.sphere_graph_slam <dataset_dir>
        [--first 1] [--sample 1] [--out DIR] [--calib-root DIR] [--lc-thread]
-       [--device cuda|cpu]
+       [--live-view DIR] [--live-port P] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from rgbd360_torch.core.register_photoicp import PHOTO_DEPTH, RegisterPhotoICP
 from rgbd360_torch.core.register_rgbd360 import RegisterRGBD360
 from rgbd360_torch.core.relocalizer import Relocalizer360
 from rgbd360_torch.core.topological import TopologicalMap360
+from rgbd360_torch.utils.live_viewer import LiveMapViewer
 from rgbd360_torch.utils.map_html import map_to_html
 from rgbd360_torch.utils.timing import stage
 from rgbd360_torch.utils.viz import save_trajectory
@@ -65,6 +68,11 @@ def run(argv=None) -> SimpleNamespace:
     ap.add_argument("--lc-thread", action="store_true",
                     help="run loop closure on a background thread (reference"
                          " behavior); default is synchronous/deterministic")
+    ap.add_argument("--live-view", default=None, metavar="DIR",
+                    help="serve a live map viewer (reference Map360_Visualizer"
+                         " analogue): writes DIR/live.html + live.json and an"
+                         " HTTP server; open the printed URL in a browser")
+    ap.add_argument("--live-port", type=int, default=0, help="live viewer port (0 = ephemeral)")
     args = ap.parse_args(argv)
 
     calib = load_calib(args.calib_root)
@@ -84,6 +92,10 @@ def run(argv=None) -> SimpleNamespace:
 
     current_pose = np.eye(4, dtype=np.float64)
     n_lc = 0
+    viewer = None
+    if args.live_view:
+        viewer = LiveMapViewer(args.live_view, port=args.live_port, title="SphereGraphSLAM live")
+        print(f"live viewer: {viewer.url or args.live_view}")
     t_last = time.perf_counter()
     frames = sequence_frames(calib, args.dataset, args.first, args.sample, args.device, defer_device=True)
     for frame_no, frame in planes_pipeline(frames):
@@ -193,9 +205,14 @@ def run(argv=None) -> SimpleNamespace:
                 line += f"; topology re-partitioned: {len(world.areas)} areas"
         print(f"{line} ({(time.perf_counter() - t_last) * 1000.0:.3f} ms)")
         t_last = time.perf_counter()
+        if viewer is not None:
+            viewer.update(world)
 
     if args.lc_thread:
         loop_closer.stop()
+    if viewer is not None:
+        viewer.update(world)
+        viewer.close()
     print(f"map: {len(world)} keyframes, {len(world.areas)} areas, {n_lc} loop closures "
           f"(pairs per refinement {loop_closer.refinements})")
     if args.out:

@@ -14,15 +14,21 @@ The dense refinement runs with full coverage: every windowed sweep takes
 the triple-anchored (mean, min, max) gather, on the card the FULL form of
 csrc/warp_gather.cu. Two or more survivors go through ONE
 ``align_batch(..., full_coverage=True)`` (``_refine_batch``), a single one
-through the facade's ``align_frames360(..., full_coverage=True)``.
+through the facade's ``align_frames360(..., full_coverage=True)``. On a
+CUDA device with more than one card visible, ``_refine_batch`` splits the
+survivors into min(b, cards) contiguous shards, one ``align_batch`` per
+card (parallel/mesh.py::align_shards; JAX splits its bucket over the pair
+mesh, loop_closure.py:232-258); the result is bit-equal to the unsplit
+call.
 
 Differences from the JAX module, each for a reason:
   * no power-of-two bucket padding of the batch: it lets XLA reuse one
     compiled executable, and the port compiles nothing (each pair of a
     batch is computed independently: tests/test_torch_loop_closure.py
     holds the poses equal with and without padding);
-  * no split of the batch over a device mesh (parallel/mesh.py comes with
-    the multi-GPU slice);
+  * the split has shards of unequal size where b does not divide (JAX
+    splits its power-of-two bucket over the largest power-of-two device
+    count that divides it);
   * ``device``: the aligner and the prefilter run on it, the card unless
     the caller names another.
 
@@ -47,6 +53,7 @@ from rgbd360_torch.core.matcher import PLANAR_3DOF
 from rgbd360_torch.core.register_photoicp import PHOTO_DEPTH, RegisterPhotoICP
 from rgbd360_torch.core.register_rgbd360 import RegisterRGBD360
 from rgbd360_torch.device import resolve_device
+from rgbd360_torch.parallel import mesh as pmesh
 from rgbd360_torch.parallel.batch import align_batch
 
 MIN_MATCHES = 5  # reference :297
@@ -182,8 +189,10 @@ class LoopClosure360:
     def _refine_batch(self, new_kf, survivors):
         """One align_batch call over all surviving candidates, with full
         coverage: the new keyframe's panorama is the source of every pair,
-        each candidate's the target. Returns (cand, pose, av_depth, H, sso)
-        per pair that is not ill-posed."""
+        each candidate's the target. With more than one card beside the
+        loop closer's (pmesh.pair_devices), the pairs split into min(b,
+        cards) contiguous shards, one card each. Returns (cand, pose,
+        av_depth, H, sso) per pair that is not ill-posed."""
         m = self.map
         b = len(survivors)
         dev = self.device
@@ -194,7 +203,13 @@ class LoopClosure360:
         gt = torch.stack([m.frames[c].sphere_gray.to(dev) for c, _g in survivors])
         dt = torch.stack([metres(m.frames[c].sphere_depth_mm) for c, _g in survivors])
         seeds = torch.from_numpy(np.stack([g.astype(np.float32) for _c, g in survivors])).to(dev)
-        res = align_batch(gs, ds, gt, dt, seeds, PHOTO_DEPTH, n_levels=self.aligner.n_pyr_levels, full_coverage=True)
+        kwargs = dict(method=PHOTO_DEPTH, n_levels=self.aligner.n_pyr_levels, full_coverage=True)
+        mesh = pmesh.pair_devices(dev)
+        if len(mesh) > 1:
+            mesh = mesh[:min(b, len(mesh))]
+            res = pmesh.align_shards(mesh, *pmesh.split_pairs(mesh, gs, ds, gt, dt, seeds), **kwargs)
+        else:
+            res = align_batch(gs, ds, gt, dt, seeds, **kwargs)
         # one read-back of what the acceptance reads
         flat = torch.cat(
             [res.pose.reshape(b, -1), res.hessian.reshape(b, -1), res.av_depth_residual[:, None],

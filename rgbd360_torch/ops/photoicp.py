@@ -241,9 +241,22 @@ def _warp_jacobian(p: torch.Tensor, dist: torch.Tensor, angle_res_inv: float):
     return chain(j_theta), chain(j_phi), chain
 
 
+def _matmul_unrolled(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b for a small inner dimension K, as K broadcast multiplies and
+    K - 1 adds in order: each entry rounds the same whatever the batch.
+    A batched GEMM does not: cuBLAS runs a batch of one pair through
+    another kernel than a batch of several, whose f32 rounding differs
+    (an H100 moved a pair's projected points by 1 ulp), and a split batch
+    (parallel/mesh.py) must equal the unsplit one."""
+    out = a[..., :, 0:1] * b[..., 0:1, :]
+    for k in range(1, a.shape[-1]):
+        out = out + a[..., :, k:k + 1] * b[..., k:k + 1, :]
+    return out
+
+
 def _transform(xyz: torch.Tensor, pose: torch.Tensor) -> torch.Tensor:
-    """p = xyz @ R^T + t in full f32 (the package sets matmul precision)."""
-    return xyz @ pose[:, :3, :3].transpose(-1, -2) + pose[:, None, :3, 3]
+    """p = xyz @ R^T + t in full f32, unrolled (_matmul_unrolled)."""
+    return _matmul_unrolled(xyz, pose[:, :3, :3].transpose(-1, -2)) + pose[:, None, :3, 3]
 
 
 def _project_indices(xyz, valid, pose, h, w):
@@ -303,6 +316,27 @@ def _normal_equations(jac: torch.Tensor, res: torch.Tensor, shape):
     return H, g
 
 
+def _pair_grams(rows: torch.Tensor, shape) -> torch.Tensor:
+    """sum_i a_i a_i^T over each pair's pixels: (B, T, N, C) per-pixel rows
+    of T terms -> (B, T, C, C); with rows [J | r] that is [[H, g], [g^T,
+    r.r]] of each term.
+
+    As _normal_equations: one (C, W) x (W, C) product per image row, then
+    a sum over the rows. Each pair is reduced on its own, by ops whose
+    shapes do not depend on B: the summation order of a batched reduction
+    does (on CUDA torch splits it by the number of outputs, on the CPU a
+    single output takes the two-pass reduction), and a pair's pose would
+    then depend on how many pairs share its call. parallel/mesh.py splits
+    the pair axis and is held bit-exact to the unsplit call."""
+    h, w = shape
+    t, c = rows.shape[1], rows.shape[-1]
+    grams = []
+    for a in rows:
+        ar = a.reshape(t * h, w, c)
+        grams.append((ar.transpose(-1, -2) @ ar).reshape(t, h, c, c).sum(dim=1))
+    return torch.stack(grams)
+
+
 def _residual_terms(gray_src_flat, gray2, depth2, ggx, ggy, dgx, dgy, visible, dist, method):
     """Per-pixel masks, weights and residuals of the photo and depth terms
     (photoicp.py:560-593 and :661-679)."""
@@ -354,7 +388,7 @@ def fused_sweep_sphere(
     p, dist, visible, rc, cc = _project_indices(xyz, valid, pose, h, w)
 
     if windowed:
-        SWEEPS["full_coverage" if two_pass else "windowed"] += 1
+        warp_gather.count(SWEEPS, "full_coverage" if two_pass else "windowed")
         r2d, c2d, vis2d = _kernel_coords(visible, rc, cc, h, w)
         if two_pass:
             planes_out, in_window = warp_gather.warp_gather_batched_multi(
@@ -365,7 +399,7 @@ def fused_sweep_sphere(
         gray2, depth2, ggx, ggy, dgx, dgy = _channels(planes_out)
         visible = visible & in_window.reshape(bsz, -1)
     else:
-        SWEEPS["exact"] += 1
+        warp_gather.count(SWEEPS, "exact")
         gray2, depth2, ggx, ggy, dgx, dgy = _exact_gather(planes, rc, cc)
 
     if occlusion:
@@ -391,26 +425,32 @@ def fused_sweep_sphere(
     zero_i = torch.zeros((bsz,), dtype=torch.int32, device=xyz.device)
     photo_err2, n_photo, depth_err2, n_depth = zero_f, zero_i, zero_f, zero_i
 
+    # per term k, the rows [J | r] (stats_only: [r]) in rows[:, k], reduced
+    # by _pair_grams
     terms = _residual_terms(gray_src_flat, gray2, depth2, ggx, ggy, dgx, dgy, visible, dist, method)
-    if "photo" in terms:
-        photo_ok, wgt, res = terms["photo"]
+    rows = torch.empty((bsz, len(terms), h * w, 1 if stats_only else 7), dtype=torch.float32, device=xyz.device)
+    for k, name in enumerate(terms):
+        ok, wgt, res = terms[name]
+        rows[:, k, :, -1] = res
         if not stats_only:
-            jac = wgt[..., None] * (ggx[..., None] * j_col + ggy[..., None] * j_row)
-            jac = torch.where(photo_ok[..., None], jac, torch.zeros_like(jac))
-            H_p, g_p = _normal_equations(jac, res, shape)
-            H, g = H + H_p, g + g_p
-        photo_err2 = torch.sum(res * res, dim=1)
-        n_photo = photo_ok.sum(dim=1, dtype=torch.int32)
-    if "depth" in terms:
-        depth_ok, wgt, res = terms["depth"]
+            if name == "photo":
+                jac = wgt[..., None] * (ggx[..., None] * j_col + ggy[..., None] * j_row)
+            else:
+                j_dist = chain(p / torch.clamp(dist, min=1e-12)[..., None])
+                jac = wgt[..., None] * (dgx[..., None] * j_col + dgy[..., None] * j_row - j_dist)
+            torch.where(ok[..., None], jac, torch.zeros((), device=jac.device), out=rows[:, k, :, :6])
+        if name == "photo":
+            n_photo = ok.sum(dim=1, dtype=torch.int32)
+        else:
+            n_depth = ok.sum(dim=1, dtype=torch.int32)
+    grams = _pair_grams(rows, shape)
+    for k, name in enumerate(terms):
         if not stats_only:
-            j_dist = chain(p / torch.clamp(dist, min=1e-12)[..., None])
-            jac = wgt[..., None] * (dgx[..., None] * j_col + dgy[..., None] * j_row - j_dist)
-            jac = torch.where(depth_ok[..., None], jac, torch.zeros_like(jac))
-            H_d, g_d = _normal_equations(jac, res, shape)
-            H, g = H + H_d, g + g_d
-        depth_err2 = torch.sum(res * res, dim=1)
-        n_depth = depth_ok.sum(dim=1, dtype=torch.int32)
+            H, g = H + grams[:, k, :6, :6], g + grams[:, k, :6, 6]
+        if name == "photo":
+            photo_err2 = grams[:, k, -1, -1]
+        else:
+            depth_err2 = grams[:, k, -1, -1]
 
     err2 = photo_err2 + depth_err2
     n_terms = n_photo + n_depth
@@ -426,7 +466,7 @@ def _exact_final_missed_stats(gray_src_flat, planes, shape, xyz, valid, pose, me
     miss set. Returns (photo_err2, n_photo, depth_err2, n_depth, n_extra)."""
     h, w = shape
     bsz = xyz.shape[0]
-    SWEEPS["exact_final_dual"] += 1
+    warp_gather.count(SWEEPS, "exact_final_dual")
     _p, dist, visible, rc, cc = _project_indices(xyz, valid, pose, h, w)
     r2d, c2d, vis2d = _kernel_coords(visible, rc, cc, h, w)
     in_window = warp_gather.window_mask_reference(r2d, c2d)
@@ -441,12 +481,12 @@ def _exact_final_missed_stats(gray_src_flat, planes, shape, xyz, valid, pose, me
     zero_i = torch.zeros((bsz,), dtype=torch.int32, device=xyz.device)
     photo_err2, n_photo, depth_err2, n_depth = zero_f, zero_i, zero_f, zero_i
     terms = _residual_terms(gray_src_flat, gray2, depth2, ggx, ggy, dgx, dgy, vis, dist, method)
-    if "photo" in terms:
-        ok, _w, res = terms["photo"]
-        photo_err2, n_photo = torch.sum(res * res, dim=1), ok.sum(dim=1, dtype=torch.int32)
-    if "depth" in terms:
-        ok, _w, res = terms["depth"]
-        depth_err2, n_depth = torch.sum(res * res, dim=1), ok.sum(dim=1, dtype=torch.int32)
+    err2 = _pair_grams(torch.stack([res for _ok, _w, res in terms.values()], dim=1)[..., None], shape)
+    for k, (name, (ok, _w, _res)) in enumerate(terms.items()):
+        if name == "photo":
+            photo_err2, n_photo = err2[:, k, 0, 0], ok.sum(dim=1, dtype=torch.int32)
+        else:
+            depth_err2, n_depth = err2[:, k, 0, 0], ok.sum(dim=1, dtype=torch.int32)
     return photo_err2, n_photo, depth_err2, n_depth, n_extra
 
 
@@ -510,7 +550,7 @@ def align_level_sphere(
         x, solve_ok = linalg6.solve6_sym(H + (~ok).to(H.dtype)[:, None, None] * eye6, g)
         ok = ok & solve_ok
         update = -x
-        new_pose = se3.exp_se3(update, pseudo=True) @ pose
+        new_pose = _matmul_unrolled(se3.exp_se3(update, pseudo=True), pose)
         new_state = sweep(new_pose)
         diff = error - new_state[0]
         accept = active & ok & (diff > tol_residual)

@@ -50,7 +50,8 @@ Both the plain version and csrc/warp_gather.cu keep these bit for bit.
 
 Each public wrapper takes CPU tensors through its plain PyTorch version and
 CUDA tensors through the kernel (or raises); there is no fallback between
-the two. ``LAUNCHES`` counts kernel launches per wrapper.
+the two. ``LAUNCHES`` counts kernel launches per wrapper (under
+``COUNT_LOCK``: shard threads launch concurrently).
 
 Not ported: the ``custom_vmap`` single-pair entries (the port is batched
 throughout) and the ``RGBD360_WARP_*`` environment knobs (the window
@@ -60,6 +61,7 @@ constants are fixed).
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -83,6 +85,17 @@ PIPELINE_KERNEL = True
 
 # kernel launches per wrapper; reset by the caller that reads them
 LAUNCHES = {"warp_gather_batched": 0, "warp_gather_batched_multi": 0, "warp_gather_single": 0}
+
+
+# guards every increment of LAUNCHES and photoicp.SWEEPS: parallel/mesh.py
+# runs one align per shard in a thread of its own
+COUNT_LOCK = threading.Lock()
+
+
+def count(counts: dict, key: str) -> None:
+    """Add one to ``counts[key]`` under COUNT_LOCK."""
+    with COUNT_LOCK:
+        counts[key] += 1
 
 
 def reset_launch_counts() -> None:
@@ -327,14 +340,17 @@ def _launch(planes, r_idx, c_idx, active, anchors, wrap):
     dims = (bsz, ht, wt, ho, wo, w_eff, hp, wp_ext, wt + halo)
     stream = ctypes.c_void_p(torch.cuda.current_stream(planes.device).cuda_stream)
     lib = load_library()
-    if anchors is None:
-        err = lib.rgbd360_warp_gather_single(*ptrs, *outs, *dims, stream)
-    else:
-        if not 1 <= len(anchors) <= 3 or any(a not in ANCHOR_CODES for a in anchors):
-            raise ValueError(f"anchors must be 1-3 of {tuple(ANCHOR_CODES)}, got {anchors}")
-        codes = [ANCHOR_CODES[a] for a in anchors] + [0] * (3 - len(anchors))
-        act = ctypes.c_void_p(active.data_ptr() if active is not None else 0)
-        err = lib.rgbd360_warp_gather(*ptrs, act, *outs, *dims, len(anchors), *codes, stream)
+    if anchors is not None and (not 1 <= len(anchors) <= 3 or any(a not in ANCHOR_CODES for a in anchors)):
+        raise ValueError(f"anchors must be 1-3 of {tuple(ANCHOR_CODES)}, got {anchors}")
+    # <<<grid, block, 0, stream>>> launches on the calling thread's current
+    # device: make it the tensors' card
+    with torch.cuda.device_of(planes):
+        if anchors is None:
+            err = lib.rgbd360_warp_gather_single(*ptrs, *outs, *dims, stream)
+        else:
+            codes = [ANCHOR_CODES[a] for a in anchors] + [0] * (3 - len(anchors))
+            act = ctypes.c_void_p(active.data_ptr() if active is not None else 0)
+            err = lib.rgbd360_warp_gather(*ptrs, act, *outs, *dims, len(anchors), *codes, stream)
     if err != 0:
         raise RuntimeError(f"warp_gather kernel launch failed: cudaError_t {err}")
     return out, mask
@@ -360,7 +376,7 @@ def warp_gather_batched(planes, r_idx, c_idx, active=None, row_policy="mean", wr
     if planes.device.type == "cpu":
         return warp_gather_batched_plain(planes, r_idx, c_idx, active, row_policy, wrap)
     result = _launch(planes, r_idx, c_idx, active, (row_policy,), wrap)
-    LAUNCHES["warp_gather_batched"] += 1
+    count(LAUNCHES, "warp_gather_batched")
     return result
 
 
@@ -376,7 +392,7 @@ def warp_gather_batched_multi(planes, r_idx, c_idx, active, wrap=True, anchors=D
     if planes.device.type == "cpu":
         return warp_gather_batched_multi_plain(planes, r_idx, c_idx, active, wrap, anchors)
     result = _launch(planes, r_idx, c_idx, active, anchors, wrap)
-    LAUNCHES["warp_gather_batched_multi"] += 1
+    count(LAUNCHES, "warp_gather_batched_multi")
     return result
 
 
@@ -390,5 +406,5 @@ def warp_gather_single(planes, r_idx, c_idx, wrap=True):
     if planes.device.type == "cpu":
         return warp_gather_single_plain(planes, r_idx, c_idx, wrap)
     result = _launch(planes, r_idx, c_idx, None, None, wrap)
-    LAUNCHES["warp_gather_single"] += 1
+    count(LAUNCHES, "warp_gather_single")
     return result

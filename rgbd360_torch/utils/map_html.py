@@ -1,6 +1,6 @@
 """Copy of rgbd360_tpu/utils/map_html.py (numpy only; a keyframe cloud held
-as tensors is read back to the host). The live viewer that shares its
-payload (utils/live_viewer.py) comes with the periphery slice.
+as tensors is read back to the host). utils/live_viewer.py serves the
+same payload while a SLAM app runs.
 
 Self-contained explorable HTML map viewer — the offline replacement for
 the reference's live PCL visualizer (reference include/Map360_Visualizer.h:95-319:

@@ -317,3 +317,50 @@ def test_stereo_program_on_the_card_matches_the_cpu(cuda, tmp_path):
     write_stereo_depth(depth_bin, depth)
     out = chip_smoke.stereo_parity(cuda, png, depth_bin)
     assert out["planes"][0] >= 6
+
+
+@pytest.mark.cuda
+def test_split_on_one_card_is_bit_equal_to_align_batch(cuda):
+    """parallel/mesh.py over [cuda:0, cuda:0] (two shards of 4 pairs, each
+    in its own thread on its own stream) at 160 x 960, where both levels of
+    a 2-level pyramid take the kernel: every AlignResult field equal to
+    align_batch's over the 8 pairs, and the launches counted across both
+    threads equal to the windowed sweeps."""
+    from rgbd360_torch.ops import photoicp
+    from rgbd360_torch.parallel import dryrun
+    from rgbd360_torch.parallel import mesh as pmesh
+    from rgbd360_torch.parallel.batch import align_batch
+
+    gray, depth = (x.to(cuda) for x in dryrun.synthetic_pair(160, 960, 8))
+    seeds = dryrun.yawed_seeds(8).to(cuda)
+    tw.reset_launch_counts()
+    photoicp.reset_sweep_counts()
+    split = pmesh.align_batch_sharded([cuda, cuda], gray, depth, gray, depth, seeds, n_levels=2)
+    torch.cuda.synchronize()
+    assert photoicp.SWEEPS["windowed"] > 0
+    assert tw.LAUNCHES["warp_gather_batched"] == photoicp.SWEEPS["windowed"]
+    assert tw.LAUNCHES["warp_gather_batched_multi"] == photoicp.SWEEPS["exact_final_dual"] == 2
+    dryrun.assert_same_result(split, align_batch(gray, depth, gray, depth, seeds, n_levels=2), "[cuda:0, cuda:0]")
+
+
+@pytest.mark.cuda
+def test_launch_from_a_thread_whose_current_device_is_another_card(cuda):
+    """The kernel launches on its tensors' card whatever the calling
+    thread's current device is (ops/warp_gather.py::_launch)."""
+    import threading
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more NVIDIA GPUs")
+    planes, r, c, active = scene("seam_yaw")
+    want = run_port(planes, r, c, active, "mean", device="cuda:1", plain=True)
+    got = {}
+
+    def launch():
+        torch.cuda.set_device(0)
+        got["out"] = run_port(planes, r, c, active, "mean", device="cuda:1")
+        torch.cuda.synchronize(1)
+
+    t = threading.Thread(target=launch)
+    t.start()
+    t.join()
+    assert_bit_exact(got["out"], want)

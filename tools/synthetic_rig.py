@@ -17,6 +17,9 @@ Writes what a real dataset holds, in the reference's file formats:
                                              tools/make_synthetic_sequence.py)
   <dataset>/poses_gt.txt                     the rig poses, one 4x4 per line
 
+and, for the MRPT rawlog loader (write_rawlog_sequence), a rawlog of the
+same room seen by a 4-sensor rig.
+
 The ray-caster and the trajectory are copies of tests/room_scene.py and
 tools/make_synthetic_sequence.py, which reach the JAX package for the
 camera matrix and the file writer; tests/test_torch_frame.py holds the copy
@@ -298,6 +301,33 @@ def write_sequence(out: str, rts: np.ndarray, frames: int = 6, loops: float = 0.
     with open(os.path.join(out, "poses_gt.txt"), "w") as f:
         for pose in poses:
             f.write(" ".join(f"{v:.9g}" for v in pose.ravel()) + "\n")
+    return np.stack(poses)
+
+
+def write_rawlog_sequence(path: str, rts: np.ndarray, frames: int = 3, radius: float = 0.8) -> np.ndarray:
+    """An MRPT rawlog (rgbd360_torch/io/rawlog.py) of the room: per frame,
+    CObservation3DRangeScan records RGBD1..RGBD4 (intensity u8 BGR as a raw
+    CImage, range f32 metres, 320 x 240) and one LASER
+    CObservation2DRangeScan the loader skips. Sensor i is ray-cast at the
+    rig pose of the first slot that apps/load_rawlog.py's SENSOR_ARRANGEMENT
+    fills from it; the rig moves along loop_pose as write_sequence's does.
+    Returns the (frames, 4, 4) rig poses."""
+    from rgbd360_torch.io.rawlog import Obs2DRangeScan, Obs3DRangeScan, write_rawlog
+
+    arrangement = (3, 0, 2, 1, 3, 0, 2, 1)  # apps/load_rawlog.py::SENSOR_ARRANGEMENT
+    poses = [loop_pose(2.0 * np.pi * 0.1 * i / 6, radius) for i in range(frames)]
+    observations = []
+    for i, pose in enumerate(poses):
+        stamp = 10_000_000 * (i + 1)
+        for sensor in range(4):
+            rt = pose @ np.asarray(rts[arrangement.index(sensor)], np.float64)
+            rgb, depth_mm = raycast_room_sensor(rt, obstacles=OBSTACLES)
+            observations.append(Obs3DRangeScan(
+                sensor_label=f"RGBD{sensor + 1}", timestamp=stamp + sensor, sensor_pose=rt,
+                range_image=depth_mm.astype(np.float32) * np.float32(0.001), intensity_image=rgb,
+            ))
+        observations.append(Obs2DRangeScan(timestamp=stamp + 9, ranges=np.full(181, 2.5, np.float32)))
+    write_rawlog(path, observations)
     return np.stack(poses)
 
 
