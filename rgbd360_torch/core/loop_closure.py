@@ -35,6 +35,10 @@ Differences from the JAX module, each for a reason:
 The search is exposed synchronously (``process_new_keyframe``,
 deterministic) and as a daemon thread (``start``/``stop``) mirroring the
 reference's threading (ctor at :83-94).
+
+Traced (utils/timing.py): the span "LC dense refinement" (attr ``pairs``)
+covers phase 2, batched or single, up to its read-back; the counter group
+``LC`` counts the search's funnel over every loop closer of the process.
 """
 
 from __future__ import annotations
@@ -55,12 +59,23 @@ from rgbd360_torch.core.register_rgbd360 import RegisterRGBD360
 from rgbd360_torch.device import resolve_device
 from rgbd360_torch.parallel import mesh as pmesh
 from rgbd360_torch.parallel.batch import align_batch
+from rgbd360_torch.utils import timing
 
 MIN_MATCHES = 5  # reference :297
 MIN_AREA_MATCHED = 15.0  # reference :298
 MAX_DEPTH_RESIDUAL = 2.0  # reference :316
 MIN_TRAJECTORY_GAP = 6.0  # metres of trajectory between candidates (:173-179)
 MAX_CANDIDATE_DIST = 5.0  # metres (:291-294)
+
+# The search's funnel, summed over process_new_keyframe calls: "keyframes"
+# searched, "candidates" the scan found, "prefilter_kept" those the plane
+# prefilter passed on to PbMap registration (all of them where it does not
+# run), "pbmap_kept" the survivors of registration, "refinements" the dense
+# refinements run (batched or single), "refined_pairs" their pairs,
+# "accepted" the closures accepted.
+LC = timing.counter_group("loop_closure.LC", {"keyframes": 0, "candidates": 0, "prefilter_kept": 0,
+                                              "pbmap_kept": 0, "refinements": 0, "refined_pairs": 0,
+                                              "accepted": 0})
 
 
 class LoopClosure360:
@@ -126,12 +141,15 @@ class LoopClosure360:
         accepted = 0
         with m.mutex:
             cands = self._candidates(kf_id)
+        timing.count(LC, "keyframes")
+        timing.count(LC, "candidates", len(cands))
         if len(cands) > 1 and new_kf.planes is not None and all(m.frames[c].planes is not None for c in cands):
             counts, areas = prefilter_candidates(
                 new_kf.planes, [m.frames[c].planes for c in cands],
                 self.registerer.matcher.config, PLANAR_3DOF, device=self.device,
             )
             cands = [c for k, c in enumerate(cands) if counts[k] >= MIN_MATCHES and areas[k] > MIN_AREA_MATCHED]
+        timing.count(LC, "prefilter_kept", len(cands))
         # phase 1 (host): exact PbMap registration per candidate; survivors
         # carry their seed pose into the dense phase
         survivors = []  # (cand_id, seed pose in sphere frame)
@@ -151,26 +169,31 @@ class LoopClosure360:
             guess = self.rot_offset @ rel @ np.linalg.inv(self.rot_offset)
             survivors.append((cand, guess))
 
+        timing.count(LC, "pbmap_kept", len(survivors))
+
         # phase 2 (device): dense refinement, full coverage — ONE batched
         # align for >= 2 survivors, the facade for a single one
         results = []  # (cand_id, pose_sphere, av_depth, H, sso)
-        if len(survivors) >= 2:
+        if survivors:
             self.refinements.append(len(survivors))
-            results = self._refine_batch(new_kf, survivors)
-        elif survivors:
-            self.refinements.append(1)
-            cand, guess = survivors[0]
-            cand_kf = m.frames[cand]
-            self.aligner.set_target_frame(cand_kf.sphere_rgb, cand_kf.sphere_depth_mm)
-            self.aligner.set_source_frame(new_kf.sphere_rgb, new_kf.sphere_depth_mm)
-            self.aligner.align_frames360(guess, PHOTO_DEPTH, full_coverage=True)
-            # the ill-posed filter of _refine_batch: a singular system leaves
-            # the pose at the PbMap seed with a degenerate Hessian
-            if not self.aligner.ill_posed:
-                results = [(
-                    cand, self.aligner.get_optimal_pose(), float(self.aligner.av_depth_residual),
-                    self.aligner.get_hessian(), float(self.aligner.sso),
-                )]
+            timing.count(LC, "refinements")
+            timing.count(LC, "refined_pairs", len(survivors))
+            with timing.span("LC dense refinement", pairs=len(survivors)):
+                if len(survivors) >= 2:
+                    results = self._refine_batch(new_kf, survivors)
+                else:
+                    cand, guess = survivors[0]
+                    cand_kf = m.frames[cand]
+                    self.aligner.set_target_frame(cand_kf.sphere_rgb, cand_kf.sphere_depth_mm)
+                    self.aligner.set_source_frame(new_kf.sphere_rgb, new_kf.sphere_depth_mm)
+                    self.aligner.align_frames360(guess, PHOTO_DEPTH, full_coverage=True)
+                    # the ill-posed filter of _refine_batch: a singular system
+                    # leaves the pose at the PbMap seed with a degenerate Hessian
+                    if not self.aligner.ill_posed:
+                        results = [(
+                            cand, self.aligner.get_optimal_pose(), float(self.aligner.av_depth_residual),
+                            self.aligner.get_hessian(), float(self.aligner.sso),
+                        )]
 
         # phase 3 (host): acceptance + graph wiring (:316-323)
         for cand, pose_sphere, av_depth, info, sso in results:
@@ -184,6 +207,7 @@ class LoopClosure360:
                 self.connections_lc.setdefault(kf_id, {})[cand] = sso
                 self.accepted.append((cand, kf_id, len(survivors) >= 2))
             accepted += 1
+        timing.count(LC, "accepted", accepted)
         return accepted
 
     def _refine_batch(self, new_kf, survivors):

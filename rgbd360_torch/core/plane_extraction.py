@@ -571,7 +571,11 @@ def planes_pipeline(frames_iter, need_inliers: bool = False, pre_collect=None, t
     (HostCopy.result + _fit_from_stats_buffer, numpy) and touches only its
     own frame's attributes; every device dispatch — the pre_collect hook
     included — stays on the caller's thread in the sequential order, so the
-    yielded plane sets are the same as sequential."""
+    yielded plane sets are the same as sequential.
+
+    Each stage carries the ``frame`` attr (utils/timing.py) of the frame it
+    works on, on either thread; of the threaded mode's stages only "planes
+    join (thread)" waits on the caller's thread."""
     def dispatch(frame):
         if getattr(frame, "_deferred_build", False):
             # deferred-build frame (sequence_frames(defer_device=True) sets
@@ -586,9 +590,10 @@ def planes_pipeline(frames_iter, need_inliers: bool = False, pre_collect=None, t
         return HostCopy(buf)
 
     def collect(frame_no, frame, copy_):
-        with stage("planes collect (sync)"):
+        # on the worker thread: the frame attr ties these to its other spans
+        with stage("planes collect (sync)", frame=frame_no):
             buf = copy_.result()
-        with stage("planes host fit"):
+        with stage("planes host fit", frame=frame_no):
             frame.planes, frame.local_planes = _fit_from_stats_buffer(frame, buf, need_inliers)
         return frame_no, frame
 
@@ -625,18 +630,18 @@ def planes_pipeline(frames_iter, need_inliers: bool = False, pre_collect=None, t
             for frame_no, frame in frames_iter:
                 if pending is not None:
                     hook(pending[1])
-                with stage("planes dispatch"):
+                with stage("planes dispatch", frame=frame_no):
                     copy_ = dispatch(frame)
                 task = Future()
                 q.put((task, frame_no, frame, copy_))
                 if pending is not None:
-                    with stage("planes join (thread)"):
+                    with stage("planes join (thread)", frame=pending[0]):
                         item = pending[2].result()
                     yield item
                 pending = (frame_no, frame, task)
             if pending is not None:
                 hook(pending[1])
-                with stage("planes join (thread)"):
+                with stage("planes join (thread)", frame=pending[0]):
                     item = pending[2].result()
                 yield item
         finally:
@@ -649,7 +654,7 @@ def planes_pipeline(frames_iter, need_inliers: bool = False, pre_collect=None, t
         # of frame N sits ahead of them in the device queue
         if pending is not None:
             hook(pending[1])
-        with stage("planes dispatch"):
+        with stage("planes dispatch", frame=frame_no):
             copy_ = dispatch(frame)
         if pending is not None:
             yield collect(*pending)

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from rgbd360_torch.utils import timing
+
 N = 6
 
 
@@ -23,7 +25,7 @@ def cholesky6(H: torch.Tensor):
     zero = torch.zeros(H.shape[:-2], dtype=H.dtype, device=H.device)
     L = [[zero for _ in range(N)] for _ in range(N)]
     ok = torch.ones(H.shape[:-2], dtype=torch.bool, device=H.device)
-    eps = torch.tensor(1e-30, dtype=H.dtype, device=H.device)
+    eps = timing.to_device(1e-30, H.dtype, H.device)
     for j in range(N):
         s = H[..., j, j]
         for k in range(j):

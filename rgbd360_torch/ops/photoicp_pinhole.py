@@ -65,18 +65,18 @@ from rgbd360_torch.ops.photoicp import (
     make_level_data,
     pack_target_planes8,
 )
+from rgbd360_torch.utils import timing
 
 PINHOLE_THRES_DEPTH_OUTLIERS = 1.0  # reference RegisterPhotoICP.h:215, :4258-4259 (photoicp_pinhole.py:257)
 
 # Sweeps since the last reset_sweep_counts(): "sweeps" every fused sweep of
 # a level loop, "lm_retries" the Levenberg-Marquardt retries among them
 # (each costs one extra sweep).
-SWEEPS = {"sweeps": 0, "lm_retries": 0}
+SWEEPS = timing.counter_group("photoicp_pinhole.SWEEPS", {"sweeps": 0, "lm_retries": 0})
 
 
 def reset_sweep_counts() -> None:
-    for k in SWEEPS:
-        SWEEPS[k] = 0
+    timing.reset_counts(SWEEPS)
 
 
 def _k_level(k_full: torch.Tensor, level: int):
@@ -268,7 +268,7 @@ def _align_level_pinhole(level: LevelData, k_full, lvl_idx: int, pose0, method: 
     f32 = np.float32
 
     def sweep(pose):
-        SWEEPS["sweeps"] += 1
+        timing.count(SWEEPS, "sweeps")
         return fused_sweep_pinhole(gray_src_flat, planes, shape, xyz, valid, pose, k_full, lvl_idx, method,
                                    cam_rts, occlusion)
 
@@ -310,7 +310,7 @@ def _align_level_pinhole(level: LevelData, k_full, lvl_idx: int, pose0, method: 
         new_pose, new_state, host = try_step(state, pose, H, g, ok_t, float(lam) if always_damped else 0.0)
         ok = bool(host[3])
         if ok and host[0] <= 0:
-            SWEEPS["lm_retries"] += 1
+            timing.count(SWEEPS, "lm_retries")
             damp = max(lam, f32(lm_lambda0)) * f32(lm_step)
             new_pose, new_state, host = try_step(state, pose, H, g, ok_t, float(damp))
         dstep, norm, sok = host[0], host[1], host[2]

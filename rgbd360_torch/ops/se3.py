@@ -14,6 +14,8 @@ import math
 
 import torch
 
+from rgbd360_torch.utils import timing
+
 
 def skew(v: torch.Tensor) -> torch.Tensor:
     """Hat operator: skew(v) @ u == v x u (reference
@@ -49,7 +51,7 @@ def exp_so3(w: torch.Tensor) -> torch.Tensor:
 
 def _to_pose(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     top = torch.cat([R, t[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
+    bottom = timing.to_device([0.0, 0.0, 0.0, 1.0], R.dtype, R.device)
     return torch.cat([top, bottom.expand(top.shape[:-2] + (1, 4))], dim=-2)
 
 

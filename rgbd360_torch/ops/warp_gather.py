@@ -50,8 +50,9 @@ Both the plain version and csrc/warp_gather.cu keep these bit for bit.
 
 Each public wrapper takes CPU tensors through its plain PyTorch version and
 CUDA tensors through the kernel (or raises); there is no fallback between
-the two. ``LAUNCHES`` counts kernel launches per wrapper (under
-``COUNT_LOCK``: shard threads launch concurrently).
+the two. ``LAUNCHES`` counts kernel launches per wrapper (a counter group
+of utils/timing.py, counted under its lock: shard threads launch
+concurrently).
 
 Not ported: the ``custom_vmap`` single-pair entries (the port is batched
 throughout) and the ``RGBD360_WARP_*`` environment knobs (the window
@@ -61,9 +62,10 @@ constants are fixed).
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
+
+from rgbd360_torch.utils import timing
 
 # Window constants (JAX warp_gather.py:51-70, their defaults; fixed here)
 BR, BC = 8, 128  # source tile
@@ -84,23 +86,12 @@ FULL = ("mean", "min", "max")
 PIPELINE_KERNEL = True
 
 # kernel launches per wrapper; reset by the caller that reads them
-LAUNCHES = {"warp_gather_batched": 0, "warp_gather_batched_multi": 0, "warp_gather_single": 0}
-
-
-# guards every increment of LAUNCHES and photoicp.SWEEPS: parallel/mesh.py
-# runs one align per shard in a thread of its own
-COUNT_LOCK = threading.Lock()
-
-
-def count(counts: dict, key: str) -> None:
-    """Add one to ``counts[key]`` under COUNT_LOCK."""
-    with COUNT_LOCK:
-        counts[key] += 1
+LAUNCHES = timing.counter_group(
+    "warp_gather.LAUNCHES", {"warp_gather_batched": 0, "warp_gather_batched_multi": 0, "warp_gather_single": 0})
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    timing.reset_counts(LAUNCHES)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -376,7 +367,7 @@ def warp_gather_batched(planes, r_idx, c_idx, active=None, row_policy="mean", wr
     if planes.device.type == "cpu":
         return warp_gather_batched_plain(planes, r_idx, c_idx, active, row_policy, wrap)
     result = _launch(planes, r_idx, c_idx, active, (row_policy,), wrap)
-    count(LAUNCHES, "warp_gather_batched")
+    timing.count(LAUNCHES, "warp_gather_batched")
     return result
 
 
@@ -392,7 +383,7 @@ def warp_gather_batched_multi(planes, r_idx, c_idx, active, wrap=True, anchors=D
     if planes.device.type == "cpu":
         return warp_gather_batched_multi_plain(planes, r_idx, c_idx, active, wrap, anchors)
     result = _launch(planes, r_idx, c_idx, active, anchors, wrap)
-    count(LAUNCHES, "warp_gather_batched_multi")
+    timing.count(LAUNCHES, "warp_gather_batched_multi")
     return result
 
 
@@ -406,5 +397,5 @@ def warp_gather_single(planes, r_idx, c_idx, wrap=True):
     if planes.device.type == "cpu":
         return warp_gather_single_plain(planes, r_idx, c_idx, wrap)
     result = _launch(planes, r_idx, c_idx, None, None, wrap)
-    count(LAUNCHES, "warp_gather_single")
+    timing.count(LAUNCHES, "warp_gather_single")
     return result

@@ -364,3 +364,51 @@ def test_launch_from_a_thread_whose_current_device_is_another_card(cuda):
     t.start()
     t.join()
     assert_bit_exact(got["out"], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("full_coverage", [False, True])
+def test_every_host_sync_of_the_aligner_is_counted(cuda, full_coverage):
+    """Under torch.cuda.set_sync_debug_mode("warn"), one align_batch of the
+    golden pair at batch 8 (track-b8's size) warns once per host sync: the
+    warnings raised inside align_frames360 equal photoicp.GN's "syncs"
+    count of the call, and every other one the call raises comes from the
+    pyramid builds. (The first set_sync_debug_mode of a process warns
+    itself; that warning is not the call's.)"""
+    import os
+    import traceback
+    import warnings
+
+    from rgbd360_torch.ops import photoicp
+    from rgbd360_torch.parallel.batch import align_batch
+
+    golden = np.load(os.path.join(os.path.dirname(__file__), "golden", "pair_1_10.npz"))
+    img = lambda key, scale: torch.from_numpy(
+        np.stack([golden[key].astype(np.float32) * scale] * 8)).to(cuda)
+    args = (img("gray_src_u8", 1 / 255.0), img("depth_src_mm", 0.001), img("gray_trg_u8", 1 / 255.0),
+            img("depth_trg_mm", 0.001), torch.eye(4, device=cuda).expand(8, 4, 4).contiguous())
+    align_batch(*args, full_coverage=full_coverage)  # warm: the kernel's build, the allocator
+    torch.cuda.synchronize()
+    where = []
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            names = [f.name for f in traceback.extract_stack()]
+            if "align_batch" in names:
+                where.append("align" if "align_frames360" in names else
+                             "pyramid" if "build_pyramid_set" in names else "elsewhere")
+
+    photoicp.reset_sweep_counts()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = align_batch(*args, full_coverage=full_coverage)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    gn = dict(photoicp.GN)
+    assert gn["iterations"] > 0 and gn["host_ns"] >= gn["wait_ns"] > 0
+    assert where.count("align") == gn["syncs"] >= gn["iterations"] + 5
+    assert where.count("elsewhere") == 0, where
+    assert torch.isfinite(res.pose).all()

@@ -34,6 +34,7 @@ from rgbd360_torch.ops import warp_gather as tw  # noqa: E402
 from rgbd360_torch.parallel import dryrun  # noqa: E402
 from rgbd360_torch.parallel import mesh as pmesh  # noqa: E402
 from rgbd360_torch.parallel.batch import align_batch  # noqa: E402
+from rgbd360_torch.utils import timing  # noqa: E402
 from rgbd360_tpu.core import batch_match as j_batch_match  # noqa: E402
 from rgbd360_tpu.core import pbmap as j_pbmap  # noqa: E402
 from rgbd360_tpu.parallel import mesh as jmesh  # noqa: E402
@@ -236,8 +237,8 @@ def test_sweep_counts_are_exact_across_threads(windowed_route):
 
 def test_every_count_is_taken_under_the_lock(monkeypatch, windowed_route):
     """Each increment of SWEEPS (and, on the card, LAUNCHES) holds
-    warp_gather.COUNT_LOCK: a bare ``+=`` from the shard threads could lose
-    an update, and chip_smoke.py holds launches equal to sweeps."""
+    timing.COUNT_LOCK: a bare ``+=`` from the shard threads could lose an
+    update, and chip_smoke.py holds launches equal to sweeps."""
     held = []
 
     class RecordingLock:
@@ -254,7 +255,7 @@ def test_every_count_is_taken_under_the_lock(monkeypatch, windowed_route):
             self.lock.release()
 
     lock = RecordingLock()
-    monkeypatch.setattr(tw, "COUNT_LOCK", lock)
+    monkeypatch.setattr(timing, "COUNT_LOCK", lock)
 
     class Counts(dict):
         def __setitem__(self, key, value):
@@ -264,5 +265,5 @@ def test_every_count_is_taken_under_the_lock(monkeypatch, windowed_route):
     monkeypatch.setattr(tp, "SWEEPS", Counts(tp.SWEEPS))
     monkeypatch.setattr(tw, "LAUNCHES", Counts(tw.LAUNCHES))
     align_batch(*_pairs(96, 576, 2), n_levels=2)
-    tw.count(tw.LAUNCHES, "warp_gather_batched")
+    timing.count(tw.LAUNCHES, "warp_gather_batched")
     assert len(held) > 3 and all(held)

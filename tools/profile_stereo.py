@@ -29,7 +29,7 @@ from rgbd360_torch.core import frame360_stereo as st  # noqa: E402
 from rgbd360_torch.device import require_cuda  # noqa: E402
 from rgbd360_torch.ops import normals, plane_stats, planes_seg  # noqa: E402
 from tools import synthetic_rig as rig  # noqa: E402
-from tools.profile_slam_loop import union_us  # noqa: E402
+from bench360.lib.trace import union_us  # noqa: E402
 
 
 def main(argv=None) -> int:
@@ -81,7 +81,7 @@ def main(argv=None) -> int:
             st.stereo_plane_stats(depth_m, rgb)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1000.0
-    # the device's kernels, copies and sets (tools/profile_slam_loop.py)
+    # the device's kernels, copies and sets (bench360/lib/trace.py)
     device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = union_us([(e.time_range.start, e.time_range.end) for e in device]) / 1000.0
     by_name = {}
