@@ -53,9 +53,11 @@ class Frame360:
 
     def _sync(self) -> None:
         """Completion of the frame's device work, for the timing brackets
-        (called only when timing is on)."""
+        (called only when timing is on): the calling thread's stream, not
+        the whole device, which CUDA refuses while another thread (the loop
+        closer's, say) captures a CUDA graph."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
 
     # -- acquisition / io ---------------------------------------------------
     def load_frame(self, path: str) -> None:

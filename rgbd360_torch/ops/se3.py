@@ -14,8 +14,6 @@ import math
 
 import torch
 
-from rgbd360_torch.utils import timing
-
 
 def skew(v: torch.Tensor) -> torch.Tensor:
     """Hat operator: skew(v) @ u == v x u (reference
@@ -51,7 +49,9 @@ def exp_so3(w: torch.Tensor) -> torch.Tensor:
 
 def _to_pose(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     top = torch.cat([R, t[..., None]], dim=-1)
-    bottom = timing.to_device([0.0, 0.0, 0.0, 1.0], R.dtype, R.device)
+    # [0, 0, 0, 1], the last row of the identity made on the device (no
+    # upload from pageable memory: ops/linalg6.py::cholesky6)
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3]
     return torch.cat([top, bottom.expand(top.shape[:-2] + (1, 4))], dim=-2)
 
 

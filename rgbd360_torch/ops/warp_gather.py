@@ -311,9 +311,10 @@ def warp_gather_single_plain(planes, r_idx, c_idx, wrap=True):
     return out.view(torch.float32), hit
 
 
-def _launch(planes, r_idx, c_idx, active, anchors, wrap):
+def _launch(planes, r_idx, c_idx, active, anchors, wrap, out=None):
     """Run csrc/warp_gather.cu on CUDA tensors; raise on any failure.
-    ``anchors`` None runs the single-buffer entry (no active, no flag)."""
+    ``anchors`` None runs the single-buffer entry (no active, no flag).
+    ``out``: an (out, mask) pair to write instead of new tensors."""
     from rgbd360_torch.kernels.build import load_library
 
     for t, name in ((planes, "planes"), (r_idx, "r"), (c_idx, "c")):
@@ -324,8 +325,15 @@ def _launch(planes, r_idx, c_idx, active, anchors, wrap):
     bsz, ht, _c, wt = planes.shape
     _, ho, wo = r_idx.shape
     hp, wp_ext, w_eff, halo = _geometry(ht, wt, wrap)
-    out = torch.empty((bsz, 8, ho, wo), dtype=torch.float32, device=planes.device)
-    mask = torch.empty((bsz, ho, wo), dtype=torch.bool, device=planes.device)
+    if out is None:
+        out = torch.empty((bsz, 8, ho, wo), dtype=torch.float32, device=planes.device)
+        mask = torch.empty((bsz, ho, wo), dtype=torch.bool, device=planes.device)
+    else:
+        out, mask = out
+        for t, shape, dtype in ((out, (bsz, 8, ho, wo), torch.float32), (mask, (bsz, ho, wo), torch.bool)):
+            if tuple(t.shape) != shape or t.dtype != dtype or t.device != planes.device or not t.is_contiguous():
+                raise ValueError(f"out must be contiguous {dtype} {shape} on {planes.device}, got "
+                                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
     ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (planes, r_idx, c_idx)]
     outs = [ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(mask.data_ptr())]
     dims = (bsz, ht, wt, ho, wo, w_eff, hp, wp_ext, wt + halo)
@@ -347,7 +355,16 @@ def _launch(planes, r_idx, c_idx, active, anchors, wrap):
     return out, mask
 
 
-def warp_gather_batched(planes, r_idx, c_idx, active=None, row_policy="mean", wrap=True):
+def _into(out, result):
+    """The plain versions' result copied into a caller's (out, mask) pair."""
+    if out is None:
+        return result
+    out[0].copy_(result[0])
+    out[1].copy_(result[1])
+    return out
+
+
+def warp_gather_batched(planes, r_idx, c_idx, active=None, row_policy="mean", wrap=True, out=None):
     """Windowed gather with one row policy (JAX warp_gather_batched :614).
 
     planes (B, Ht, 8, Wt) f32 [gray, depth, ggx, ggy, dgx, dgy, 0, 0];
@@ -355,7 +372,8 @@ def warp_gather_batched(planes, r_idx, c_idx, active=None, row_policy="mean", wr
     (B, Ho, Wo) bool — only these pixels place windows and are gathered;
     wrap: columns wrap at Wt (the panorama theta seam).
     Returns (out (B, 8, Ho, Wo) f32 with the in-window flag in channel 6,
-    in_window (B, Ho, Wo) bool).
+    in_window (B, Ho, Wo) bool); ``out`` given, that pair, written (the
+    aligner's CUDA graphs read the gather from buffers of their own).
 
     With ``PIPELINE_KERNEL`` False this is ``warp_gather_single`` whatever
     the row policy, and ``active`` is ignored (JAX :688-711)."""
@@ -363,15 +381,15 @@ def warp_gather_batched(planes, r_idx, c_idx, active=None, row_policy="mean", wr
     if row_policy not in ANCHOR_CODES:
         raise ValueError(f"row_policy must be one of {tuple(ANCHOR_CODES)}, got {row_policy!r}")
     if not PIPELINE_KERNEL:
-        return warp_gather_single(planes, r_idx, c_idx, wrap)
+        return _into(out, warp_gather_single(planes, r_idx, c_idx, wrap))
     if planes.device.type == "cpu":
-        return warp_gather_batched_plain(planes, r_idx, c_idx, active, row_policy, wrap)
-    result = _launch(planes, r_idx, c_idx, active, (row_policy,), wrap)
+        return _into(out, warp_gather_batched_plain(planes, r_idx, c_idx, active, row_policy, wrap))
+    result = _launch(planes, r_idx, c_idx, active, (row_policy,), wrap, out)
     timing.count(LAUNCHES, "warp_gather_batched")
     return result
 
 
-def warp_gather_batched_multi(planes, r_idx, c_idx, active, wrap=True, anchors=DUAL):
+def warp_gather_batched_multi(planes, r_idx, c_idx, active, wrap=True, anchors=DUAL, out=None):
     """One pass covering the union of the per-anchor windows (JAX
     warp_gather_batched_multi :535): ("min", "max") is the exact-final
     re-gather, ("mean", "min", "max") full coverage. Same contract as
@@ -381,8 +399,8 @@ def warp_gather_batched_multi(planes, r_idx, c_idx, active, wrap=True, anchors=D
         raise ValueError("warp_gather_batched_multi needs an active mask")
     anchors = tuple(anchors)
     if planes.device.type == "cpu":
-        return warp_gather_batched_multi_plain(planes, r_idx, c_idx, active, wrap, anchors)
-    result = _launch(planes, r_idx, c_idx, active, anchors, wrap)
+        return _into(out, warp_gather_batched_multi_plain(planes, r_idx, c_idx, active, wrap, anchors))
+    result = _launch(planes, r_idx, c_idx, active, anchors, wrap, out)
     timing.count(LAUNCHES, "warp_gather_batched_multi")
     return result
 

@@ -22,8 +22,9 @@ level, which runs the gather's plain version (as the JAX dry run forces the
 route and runs the Pallas kernel in interpret mode).
 
 Each align leg must be bit-equal to ``align_batch`` over the whole batch on
-the same device, iteration counts included (the JAX dry run holds its legs
-within 1e-5); the prefilter must equal ``batch_match.prefilter_candidates``.
+the same device (on a card both op by op and from CUDA graphs), iteration
+counts included (the JAX dry run holds its legs within 1e-5); the
+prefilter must equal ``batch_match.prefilter_candidates``.
 """
 
 from __future__ import annotations
@@ -91,9 +92,12 @@ def _tiny_pbmap(offset: float):
 
 
 def _align_leg(mesh, dev, shape, n_levels, full_coverage, leg):
-    """Sharded and unsplit align of the leg's batch; returns (the split
-    result, its kernel launches, its sweeps), both counted across the
-    shards' threads."""
+    """Sharded and unsplit align of the leg's batch, each twice; returns
+    (the first split result, its kernel launches, its sweeps), both counted
+    across the shards' threads. On a card a thread's second call of the
+    shapes replays the aligner's CUDA graphs (ops/photoicp.py; the shard
+    threads outlive the call), the first runs op by op unless an earlier
+    call of the thread met them."""
     batch = PAIRS_PER_DEVICE * len(mesh)
     gray, depth = synthetic_pair(*shape, batch)
     gray, depth, seeds = gray.to(dev), depth.to(dev), yawed_seeds(batch).to(dev)
@@ -102,8 +106,11 @@ def _align_leg(mesh, dev, shape, n_levels, full_coverage, leg):
     photoicp.reset_sweep_counts()
     split = pmesh.align_batch_sharded(mesh, gray, depth, gray, depth, seeds, **kwargs)
     launches, sweeps = dict(warp_gather.LAUNCHES), dict(photoicp.SWEEPS)
-    whole = align_batch(gray, depth, gray, depth, seeds, **kwargs)
-    assert_same_result(split, whole, leg)
+    again = pmesh.align_batch_sharded(mesh, gray, depth, gray, depth, seeds, **kwargs)
+    for _ in range(2):
+        whole = align_batch(gray, depth, gray, depth, seeds, **kwargs)
+        assert_same_result(split, whole, leg)
+        assert_same_result(again, whole, f"{leg} (second split call)")
     return split, launches, sweeps
 
 

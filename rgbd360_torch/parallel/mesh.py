@@ -11,7 +11,10 @@ A mesh is an ordered list of ``torch.device``. The JAX package places the
 pair axis under shard_map; here each shard runs ``align_batch`` in a thread
 of its own, on a stream of its own, because every Gauss-Newton iteration
 syncs with the host once (the loop condition): one thread per shard lets
-the shards' device work overlap those syncs. Each pair is reduced on its
+the shards' device work overlap those syncs. The shard threads live as
+long as the process (one per shard index and device), so the aligner's
+CUDA graphs, which a thread keeps for itself (ops/photoicp.py), are
+replayed by the next call of the same shapes. Each pair is reduced on its
 own (ops/photoicp.py::_pair_grams), so a split result is bit-equal to the
 unsplit call on the same device type.
 
@@ -23,6 +26,7 @@ virtual devices.
 from __future__ import annotations
 
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -72,41 +76,59 @@ def shard_pairs(mesh: Sequence[torch.device], *tensors: torch.Tensor):
     return split_pairs(mesh, *tensors)
 
 
+class _ShardWorker:
+    """One long-lived thread, and on a card a stream of its own, that runs
+    the align jobs of one shard index on one device in turn."""
+
+    def __init__(self, k: int, dev: torch.device):
+        self.pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix=f"align_shard_{k}")
+        self.stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+
+
+_WORKERS: dict = {}  # (shard index, device) -> _ShardWorker
+_WORKERS_LOCK = threading.Lock()
+
+
+def _shard_worker(k: int, dev: torch.device) -> _ShardWorker:
+    with _WORKERS_LOCK:
+        if (k, dev) not in _WORKERS:
+            _WORKERS[k, dev] = _ShardWorker(k, dev)
+        return _WORKERS[k, dev]
+
+
 def align_shards(mesh: Sequence[torch.device], *shards, **kwargs) -> photoicp.AlignResult:
     """``align_batch(*shard, **kwargs)`` for each shard (``shards`` as
-    split_pairs returns them: per operand, one tensor per device), each in
-    a thread of its own and, on a card, on a stream of its own. Returns the
-    shards' results concatenated on ``mesh[0]`` in pair order. A shard's
-    failure is raised here."""
-    results: list = [None] * len(mesh)
-    errors: list = []
+    split_pairs returns them: per operand, one tensor per device), each on
+    its shard's long-lived thread and, on a card, that thread's stream.
+    Returns the shards' results concatenated on ``mesh[0]`` in pair order.
+    A shard's failure is raised here, once every shard has ended."""
     # the streams that produced the shards: each shard's stream waits on its
     # device's, and the caller's stream of mesh[0] on every shard's
     callers = [torch.cuda.current_stream(d) if d.type == "cuda" else None for d in mesh]
 
-    def run(k: int) -> None:
+    def run(k: int, stream):
         dev = mesh[k]
         args = [operand[k] for operand in shards]
-        try:
-            if dev.type != "cuda":
-                results[k] = align_batch(*args, **kwargs)
-                return
-            with torch.cuda.device(dev):
-                stream = torch.cuda.Stream(dev)
-                stream.wait_stream(callers[k])
-                with torch.cuda.stream(stream):
-                    results[k] = align_batch(*args, **kwargs)
-                stream.synchronize()
-        except BaseException as exc:  # re-raised by the caller's thread
-            errors.append(exc)
+        if stream is None:
+            return align_batch(*args, **kwargs)
+        with torch.cuda.device(dev):
+            stream.wait_stream(callers[k])
+            with torch.cuda.stream(stream):
+                res = align_batch(*args, **kwargs)
+            stream.synchronize()
+            return res
 
-    threads = [threading.Thread(target=run, args=(k,), name=f"align_shard_{k}") for k in range(len(mesh))]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    if errors:
-        raise errors[0]
+    workers = [_shard_worker(k, dev) for k, dev in enumerate(mesh)]
+    futures = [w.pool.submit(run, k, w.stream) for k, w in enumerate(workers)]
+    errors = [f.exception() for f in futures]
+    for exc in errors:
+        if exc is not None:
+            raise exc
+    results = [f.result() for f in futures]
+    for res, caller in zip(results, callers):
+        if caller is not None:  # read on the caller's stream: not reused by the shard's before
+            for t in res:
+                t.record_stream(caller)
     return photoicp.AlignResult(*[
         torch.cat([getattr(r, field).to(mesh[0]) for r in results]) for field in photoicp.AlignResult._fields
     ])

@@ -238,7 +238,7 @@ def host_sync(op, *args, **kwargs):
     """``op(*args, **kwargs)``, a call that blocks the host until the device
     has run what was issued before it: a read of a device value (``bool``,
     ``.item()``, ``.cpu()``) or a copy from pageable host memory to the
-    device (``to_device``). Counted and timed inside a sync_scope."""
+    device. Counted and timed inside a sync_scope."""
     scope = getattr(_local, "scope", None)
     if scope is None:
         return op(*args, **kwargs)
@@ -251,15 +251,6 @@ def host_sync(op, *args, **kwargs):
         counts["syncs"] += 1
         counts["wait_ns"] += waited
     return out
-
-
-def to_device(data, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """``torch.tensor(data, dtype=dtype, device=device)``. On a CUDA device
-    that is a copy from pageable memory, which waits for the stream: a
-    host_sync."""
-    if device.type == "cpu":
-        return torch.tensor(data, dtype=dtype)
-    return host_sync(torch.tensor, data, dtype=dtype, device=device)
 
 
 # -- the Chrome trace ---------------------------------------------------------

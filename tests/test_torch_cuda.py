@@ -372,9 +372,11 @@ def test_every_host_sync_of_the_aligner_is_counted(cuda, full_coverage):
     """Under torch.cuda.set_sync_debug_mode("warn"), one align_batch of the
     golden pair at batch 8 (track-b8's size) warns once per host sync: the
     warnings raised inside align_frames360 equal photoicp.GN's "syncs"
-    count of the call, and every other one the call raises comes from the
-    pyramid builds. (The first set_sync_debug_mode of a process warns
-    itself; that warning is not the call's.)"""
+    count of the call, which is one per loop test, and every other one the
+    call raises comes from the pyramid builds. The call is the shapes'
+    second: it captures the loop's CUDA graphs and replays them. (The
+    first set_sync_debug_mode of a process warns itself; that warning is
+    not the call's.)"""
     import os
     import traceback
     import warnings
@@ -387,6 +389,7 @@ def test_every_host_sync_of_the_aligner_is_counted(cuda, full_coverage):
         np.stack([golden[key].astype(np.float32) * scale] * 8)).to(cuda)
     args = (img("gray_src_u8", 1 / 255.0), img("depth_src_mm", 0.001), img("gray_trg_u8", 1 / 255.0),
             img("depth_trg_mm", 0.001), torch.eye(4, device=cuda).expand(8, 4, 4).contiguous())
+    photoicp.release_graphs()
     align_batch(*args, full_coverage=full_coverage)  # warm: the kernel's build, the allocator
     torch.cuda.synchronize()
     where = []
@@ -409,6 +412,311 @@ def test_every_host_sync_of_the_aligner_is_counted(cuda, full_coverage):
             torch.cuda.set_sync_debug_mode(0)
     gn = dict(photoicp.GN)
     assert gn["iterations"] > 0 and gn["host_ns"] >= gn["wait_ns"] > 0
-    assert where.count("align") == gn["syncs"] >= gn["iterations"] + 5
+    # one read per loop test: a read per body and the test that ends each
+    # of the 5 levels; the loop makes its constants on the device
+    assert where.count("align") == gn["syncs"] == gn["iterations"] + 5
     assert where.count("elsewhere") == 0, where
+    # the measured call captured the graphs and replayed every body
+    assert photoicp.GRAPHS["captures"] > 0 and photoicp.GRAPHS["eager_bodies"] == 0
     assert torch.isfinite(res.pose).all()
+
+
+def _golden_args(cuda, b, swapped=False):
+    """The golden pair stacked b times (source and target swapped, and the
+    seeds turned the other way, for other inputs of the same shapes), and
+    each pair's seed yawed by 0.01 k rad: (gray_src, depth_src, gray_trg,
+    depth_trg, seeds)."""
+    import os
+
+    from rgbd360_torch.parallel.dryrun import yawed_seeds
+
+    golden = np.load(os.path.join(os.path.dirname(__file__), "golden", "pair_1_10.npz"))
+    src, trg = ("gray_src_u8", "depth_src_mm"), ("gray_trg_u8", "depth_trg_mm")
+    if swapped:
+        src, trg = trg, src
+    img = lambda key, scale: torch.from_numpy(np.stack([golden[key].astype(np.float32) * scale] * b)).to(cuda)
+    seeds = yawed_seeds(b)
+    if swapped:
+        seeds = seeds.transpose(-1, -2).contiguous()
+    return (img(src[0], 1 / 255.0), img(src[1], 0.001), img(trg[0], 1 / 255.0), img(trg[1], 0.001),
+            seeds.to(cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,full_coverage,occlusion", [
+    (8, False, 0), (8, True, 0), (1, False, 0), (3, True, 0), (1, False, 2), (3, False, 2),
+])
+def test_graph_path_is_bit_equal_to_the_eager_path(cuda, monkeypatch, b, full_coverage, occlusion):
+    """The golden pair at 1920 x 320, 5 levels (L0-L2 windowed, L3-L4
+    exact): aligns of the same shapes on inputs A, A, B, A replay the
+    loop's CUDA graphs from the second on (the first runs op by op, the
+    second captures), and each equals the eager path forced by the routing
+    predicate in every AlignResult field, bit for bit, and in its SWEEPS
+    and LAUNCHES; B, on other inputs, would show a stale buffer. Every
+    windowed sweep launches the kernel once."""
+    from rgbd360_torch.ops import photoicp
+    from rgbd360_torch.parallel.dryrun import assert_same_result
+
+    inputs = {"A": _golden_args(cuda, b), "B": _golden_args(cuda, b, swapped=True)}
+
+    def align(name):
+        tw.reset_launch_counts()
+        photoicp.reset_sweep_counts()
+        res = photoicp.align_spheres(*inputs[name], occlusion=occlusion, full_coverage=full_coverage)
+        torch.cuda.synchronize()
+        return res, dict(photoicp.SWEEPS), dict(tw.LAUNCHES), dict(photoicp.GRAPHS), dict(photoicp.GN)
+
+    monkeypatch.setattr(photoicp, "_use_cuda_graphs", lambda device: False)
+    eager = {name: align(name) for name in inputs}
+    monkeypatch.undo()
+    photoicp.release_graphs()
+    for k, name in enumerate("AABA"):
+        res, sweeps, launches, graphs, gn = align(name)
+        want, want_sweeps, want_launches, want_graphs, _gn = eager[name]
+        assert_same_result(res, want, f"call {k} ({name})")
+        assert sweeps == want_sweeps and launches == want_launches
+        assert launches["warp_gather_batched"] == sweeps["windowed"]
+        assert launches["warp_gather_batched_multi"] == sweeps["full_coverage"] + sweeps["exact_final_dual"]
+        assert sweeps["windowed" if not full_coverage else "full_coverage"] > 0
+        assert gn["iterations"] > 0 and want_graphs["eager_bodies"] == gn["iterations"]
+        if k == 0:  # the shapes' first use
+            assert graphs == {"captures": 0, "replays": 0, "eager_bodies": gn["iterations"]}
+        else:  # 3 windowed levels of 2 graphs a sweep, 2 exact levels of 1
+            assert graphs == {"captures": 16 if k == 1 else 0, "replays": gn["iterations"] + 5, "eager_bodies": 0}
+
+
+@pytest.mark.cuda
+def test_threads_replay_graphs_of_their_own(cuda, monkeypatch):
+    """Two threads, each on a stream of its own, align the same shapes
+    three times at once (op by op, capture, replay) on different inputs,
+    while a third makes device work and waits for it, as the SLAM app's
+    planes worker does: every result bit-equal to the same align run alone
+    op by op."""
+    import threading
+
+    from rgbd360_torch.ops import photoicp
+    from rgbd360_torch.parallel import dryrun
+    from rgbd360_torch.parallel.batch import align_batch
+
+    gray, depth = (x.to(cuda) for x in dryrun.synthetic_pair(160, 960, 4))
+    seeds = [dryrun.yawed_seeds(4).to(cuda), dryrun.yawed_seeds(4).transpose(-1, -2).contiguous().to(cuda)]
+    monkeypatch.setattr(photoicp, "_use_cuda_graphs", lambda device: False)
+    want = [align_batch(gray, depth, gray, depth, s, n_levels=2) for s in seeds]
+    monkeypatch.undo()
+    got, errors, stop = [[], []], [], threading.Event()
+
+    def aligner(k):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(cuda)):
+                for _ in range(3):
+                    got[k].append(align_batch(gray, depth, gray, depth, seeds[k], n_levels=2))
+                torch.cuda.current_stream().synchronize()
+        except BaseException as exc:
+            errors.append(exc)
+
+    def worker():
+        # reads of device values, a copy waited on through its event, a
+        # wait on its own stream: a device-wide torch.cuda.synchronize()
+        # would be refused while another thread captures
+        try:
+            x = torch.arange(1 << 20, device=cuda, dtype=torch.float32)
+            while not stop.is_set():
+                if not (x * 2.0).sum().item() > 0:
+                    raise AssertionError("the side thread's sum")
+                host = (x + 1.0).to("cpu", non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+                done.synchronize()
+                torch.cuda.current_stream().synchronize()
+                if float(host[-1]) != float(1 << 20):
+                    raise AssertionError("the side thread's copy")
+        except BaseException as exc:
+            errors.append(exc)
+
+    photoicp.reset_sweep_counts()
+    side = threading.Thread(target=worker, daemon=True)
+    side.start()
+    threads = [threading.Thread(target=aligner, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    stop.set()
+    side.join(timeout=60)
+    assert not any(t.is_alive() for t in threads) and not side.is_alive()
+    if errors:
+        raise errors[0]
+    for k in range(2):
+        assert len(got[k]) == 3
+        for n, res in enumerate(got[k]):
+            dryrun.assert_same_result(res, want[k], f"thread {k} call {n}")
+    # per thread 2 windowed levels, each 2 graphs for its first sweep and 2
+    # for its loop body
+    assert photoicp.GRAPHS["captures"] == 2 * 2 * 4
+
+
+@pytest.mark.cuda
+def test_frame_timing_sync_beside_a_capture(cuda, monkeypatch):
+    """Frame360's timing brackets wait for their thread's stream, not the
+    device: with the SLAM app's --lc-thread and stage timing on, the frame
+    builds time their brackets while the loop closer's thread captures the
+    aligner's CUDA graphs, and CUDA refuses a device-wide sync during a
+    capture (the capture is lost and both threads raise). Here a capture
+    is held open until another thread has made device work and run the
+    bracket's sync; the align still equals the eager one, bit for bit."""
+    import threading
+    import types
+
+    from rgbd360_torch.core.frame360 import Frame360
+    from rgbd360_torch.ops import photoicp
+    from rgbd360_torch.parallel import dryrun
+    from rgbd360_torch.parallel.batch import align_batch
+
+    gray, depth = (x.to(cuda) for x in dryrun.synthetic_pair(160, 960, 2))
+    seeds = dryrun.yawed_seeds(2).to(cuda)
+    monkeypatch.setattr(photoicp, "_use_cuda_graphs", lambda device: False)
+    want = align_batch(gray, depth, gray, depth, seeds, n_levels=2)
+    monkeypatch.undo()
+    capturing, synced, errors, got, syncs = threading.Event(), threading.Event(), [], [], []
+    first_project = photoicp._LevelGraphs._first_project
+
+    def held_open(self):  # runs while the first sweep's graph is captured
+        first_project(self)
+        capturing.set()
+        synced.wait(timeout=120)
+
+    monkeypatch.setattr(photoicp._LevelGraphs, "_first_project", held_open)
+
+    def aligner():
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(cuda)):
+                for _ in range(2):  # op by op, then captured and replayed
+                    got.append(align_batch(gray, depth, gray, depth, seeds, n_levels=2))
+                torch.cuda.current_stream().synchronize()
+        except BaseException as exc:
+            errors.append(exc)
+        finally:
+            capturing.set()
+
+    def frame_builder():
+        try:
+            capturing.wait(timeout=300)
+            frame = types.SimpleNamespace(device=cuda)
+            x = torch.arange(1 << 20, device=cuda, dtype=torch.float32)
+            for _ in range(3):
+                y = x * 2.0
+                Frame360._sync(frame)
+                syncs.append(float(y[-1]))
+        except BaseException as exc:
+            errors.append(exc)
+        finally:
+            synced.set()
+
+    threads = [threading.Thread(target=aligner), threading.Thread(target=frame_builder)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not any(t.is_alive() for t in threads)
+    if errors:
+        raise errors[0]
+    assert syncs == [2.0 * ((1 << 20) - 1)] * 3
+    assert len(got) == 2
+    for n, res in enumerate(got):
+        dryrun.assert_same_result(res, want, f"call {n}")
+
+
+@pytest.mark.cuda
+def test_graph_cache_stops_capturing_at_its_byte_bound(cuda, monkeypatch):
+    """A thread captures a new key only if its graphs stay within
+    GRAPH_BYTES_PER_THREAD with it: with a bound of one byte the second
+    align captures the first level it meets (nothing foreseen yet) and runs
+    the other op by op; a key of a larger batch of a level already held is
+    foreseen from it and refused though the bound is not yet reached. Every
+    align bit-equal to the eager path."""
+    from rgbd360_torch.ops import photoicp
+    from rgbd360_torch.parallel import dryrun
+    from rgbd360_torch.parallel.batch import align_batch
+
+    gray, depth = (x.to(cuda) for x in dryrun.synthetic_pair(160, 960, 4))
+    seeds = dryrun.yawed_seeds(4).to(cuda)
+
+    def align(b):
+        photoicp.reset_sweep_counts()
+        return align_batch(gray[:b], depth[:b], gray[:b], depth[:b], seeds[:b], n_levels=2)
+
+    monkeypatch.setattr(photoicp, "_use_cuda_graphs", lambda device: False)
+    want = {b: align(b) for b in (2, 4)}
+    monkeypatch.undo()
+    photoicp.release_graphs()
+    assert photoicp.held_graph_bytes() == 0
+    monkeypatch.setattr(photoicp, "GRAPH_BYTES_PER_THREAD", 1)
+    for k in range(3):
+        dryrun.assert_same_result(align(2), want[2], f"call {k}")
+        graphs = dict(photoicp.GRAPHS)
+        if k == 0:
+            assert graphs["captures"] == graphs["replays"] == 0
+        else:  # one windowed level from its graphs (2 a sweep), the other op by op
+            assert graphs["captures"] == (4 if k == 1 else 0)
+            assert graphs["replays"] > 0 and graphs["eager_bodies"] > 0
+    held = photoicp.held_graph_bytes()
+    # at least the key's buffers: 2 pairs x 80 x 480 (the coarse level) x
+    # (gray, depth, 8 planes, 8 gathered channels) f32
+    assert 2 * 80 * 480 * 18 * 4 <= held < 1 << 30
+
+    photoicp.release_graphs()
+    monkeypatch.setattr(photoicp, "GRAPH_BYTES_PER_THREAD", 8 << 30)
+    for k in range(2):  # both levels of 2 pairs held
+        dryrun.assert_same_result(align(2), want[2], f"batch 2, call {k}")
+    held = photoicp.held_graph_bytes()
+    assert photoicp.GRAPHS["eager_bodies"] == 0 and held > 0
+    monkeypatch.setattr(photoicp, "GRAPH_BYTES_PER_THREAD", held + 1)
+    for k in range(3):  # 4 pairs of either level would pass the bound
+        dryrun.assert_same_result(align(4), want[4], f"batch 4, call {k}")
+        assert photoicp.GRAPHS["captures"] == photoicp.GRAPHS["replays"] == 0
+    assert photoicp.held_graph_bytes() == held
+    photoicp.release_graphs()
+    assert photoicp.held_graph_bytes() == 0
+
+
+@pytest.mark.cuda
+def test_split_shard_threads_replay_their_graphs(cuda):
+    """The mesh's shard threads outlive a call, so a split of the same
+    shapes replays their CUDA graphs from its second call on: three splits
+    over [cuda:0, cuda:0], each bit-equal to align_batch over the 8 pairs,
+    the third with every loop body replayed."""
+    from rgbd360_torch.ops import photoicp
+    from rgbd360_torch.parallel import dryrun
+    from rgbd360_torch.parallel import mesh as pmesh
+    from rgbd360_torch.parallel.batch import align_batch
+
+    gray, depth = (x.to(cuda) for x in dryrun.synthetic_pair(160, 960, 8))
+    seeds = dryrun.yawed_seeds(8).to(cuda)
+    whole = align_batch(gray, depth, gray, depth, seeds, n_levels=2, full_coverage=True)
+    for k in range(3):
+        photoicp.reset_sweep_counts()
+        split = pmesh.align_batch_sharded([cuda, cuda], gray, depth, gray, depth, seeds, n_levels=2,
+                                          full_coverage=True)
+        torch.cuda.synchronize()
+        dryrun.assert_same_result(split, whole, f"split call {k}")
+    assert photoicp.GN["iterations"] > 0
+    assert photoicp.GRAPHS == {"captures": 0, "replays": photoicp.GN["iterations"] + 2 * 2, "eager_bodies": 0}
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_on_one_card(cuda, capsys):
+    """parallel/dryrun.py over [cuda:0, cuda:0]: every align leg's split
+    and unsplit calls, op by op and from CUDA graphs, bit-equal; the
+    kernel's launches equal to the windowed and full-coverage sweeps."""
+    from rgbd360_torch.ops import photoicp
+    from rgbd360_torch.parallel import dryrun
+
+    photoicp.reset_sweep_counts()
+    report = dryrun.dryrun_multichip(2, cuda)
+    assert "dryrun_multichip OK: 2 shards of cuda" in capsys.readouterr().out
+    assert photoicp.GRAPHS["replays"] > 0
+    for leg in ("lc", "kernel"):
+        launches, sweeps = report[leg]["launches"], report[leg]["sweeps"]
+        assert launches["warp_gather_batched"] == sweeps["windowed"]
+        assert launches["warp_gather_batched_multi"] == sweeps["full_coverage"] + sweeps["exact_final_dual"]
+    assert report["lc"]["sweeps"]["full_coverage"] > 0 and report["kernel"]["sweeps"]["windowed"] > 0

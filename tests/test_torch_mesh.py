@@ -116,6 +116,40 @@ def test_a_shard_failure_is_raised(monkeypatch):
         pmesh.align_batch_sharded([CPU, CPU], *_pairs(32, 192, 2), n_levels=2)
 
 
+def test_shards_run_on_threads_that_outlive_the_call(monkeypatch):
+    """Each shard of a mesh runs on a thread of its own that serves every
+    later call of its shard index and device (so a thread's CUDA graphs
+    are met again on a card), and keeps serving after a shard failed:
+    three calls over [cpu, cpu], the same two threads, equal results."""
+    args = _pairs(32, 192, 4)
+    threads, real = [], pmesh.align_batch
+
+    def spy(*a, **k):
+        threads.append(threading.current_thread())
+        return real(*a, **k)
+
+    monkeypatch.setattr(pmesh, "align_batch", spy)
+    first = pmesh.align_batch_sharded([CPU, CPU], *args, n_levels=2)
+    second = pmesh.align_batch_sharded([CPU, CPU], *args, n_levels=2)
+
+    def boom(*a, **k):
+        threads.append(threading.current_thread())
+        raise RuntimeError("shard failed")
+
+    monkeypatch.setattr(pmesh, "align_batch", boom)
+    with pytest.raises(RuntimeError, match="shard failed"):
+        pmesh.align_batch_sharded([CPU, CPU], *args, n_levels=2)
+    monkeypatch.setattr(pmesh, "align_batch", spy)
+    third = pmesh.align_batch_sharded([CPU, CPU], *args, n_levels=2)
+    assert len(threads) == 8 and len(set(threads[:2])) == 2
+    assert all(set(threads[i:i + 2]) == set(threads[:2]) for i in range(0, 8, 2))
+    assert threading.main_thread() not in threads
+    assert all(t.is_alive() for t in threads)
+    dryrun.assert_same_result(second, first, "second call")
+    dryrun.assert_same_result(third, first, "third call")
+    dryrun.assert_same_result(first, real(*args, n_levels=2), "unsplit")
+
+
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
