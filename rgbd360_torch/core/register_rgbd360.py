@@ -103,27 +103,28 @@ class RegisterRGBD360:
         """Dense multi-sensor registration: one robot pose optimized jointly
         from the 8 cameras' pinhole residuals on the frames' device
         (reference RegisterRGBD360.h:344-516 RegisterDensePhotoICP;
-        register_rgbd360.py:112). frame2 is the source, its raw (not
-        undistorted) depth in metres. Returns False when the system is
+        register_rgbd360.py:112), through the batched loop at B = 1
+        (parallel/batch.py::align_batch_rig). frame2 is the source, its raw
+        (not undistorted) depth in metres. Returns False when the system is
         ill-posed; sets the pose and, as information, the Hessian."""
         import torch
 
         from rgbd360_torch.ops.image import gray_f32
-        from rgbd360_torch.ops.photoicp_pinhole import register_dense_photoicp
+        from rgbd360_torch.parallel.batch import align_batch_rig
 
         dev = frame2.device
         guess = np.eye(4, dtype=np.float32) if pose_estim is None else pose_estim
         rt, _rt_inv, cam = frame1.calib.device_extrinsic_arrays(dev)  # cached uploads
-        res = register_dense_photoicp(
-            gray_f32(frame2.rgb), frame2.depth_raw_mm.to(torch.float32) * 0.001,
-            gray_f32(frame1.rgb), frame1.depth_raw_mm.to(torch.float32) * 0.001,
-            rt, cam, torch.as_tensor(guess, dtype=torch.float32).to(dev), method=method, n_levels=n_levels,
+        res = align_batch_rig(
+            gray_f32(frame2.rgb)[None], (frame2.depth_raw_mm.to(torch.float32) * 0.001)[None],
+            gray_f32(frame1.rgb)[None], (frame1.depth_raw_mm.to(torch.float32) * 0.001)[None],
+            rt, cam, torch.as_tensor(guess, dtype=torch.float32).to(dev)[None], method=method, n_levels=n_levels,
         )
         self._done = True
         self.ref360, self.trg360 = frame1, frame2
-        self.rigid_transf = res.pose.cpu().numpy()
-        self.information = res.hessian.cpu().numpy()
-        return not bool(res.ill_posed)
+        self.rigid_transf = res.pose[0].cpu().numpy()
+        self.information = res.hessian[0].cpu().numpy()
+        return not bool(res.ill_posed[0])
 
     # -- accessors ---------------------------------------------------------------
     def get_pose(self) -> np.ndarray:

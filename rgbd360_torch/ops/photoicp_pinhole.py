@@ -1,14 +1,16 @@
 """Pinhole dense photo+depth alignment: single-camera (alignFrames) and the
-8-camera robot-frame variant behind RegisterDensePhotoICP.
+8-camera robot-frame variant behind RegisterDensePhotoICP, batched over
+pairs.
 
 Counterpart of rgbd360_tpu/ops/photoicp_pinhole.py (reference
 include/RegisterPhotoICP.h:560-1100 errorPhotoICP / calcHessGrad, :4254-4512
 alignFrames, :4905-5270 the robot-frame error and Hessian;
 include/RegisterRGBD360.h:344-516 RegisterDensePhotoICP). The JAX package
-vmaps its sweep over the cameras; here the cameras are the leading axis C of
-every tensor of a sweep ((C, H, W) images, (C, N, 3) points, (C, 4, 4)
-extrinsics) and the per-camera sums are summed over it
-(photoicp_pinhole.py:300). One robot (or camera) pose is shared by all C.
+vmaps its sweep over the cameras; here every tensor of a sweep carries a
+pair axis B and a camera axis C ((B, C, H, W) images, (B, C, N, 3) points,
+(C, 4, 4) extrinsics shared by the pairs), and each pair's per-camera sums
+are summed over C (photoicp_pinhole.py:300). One robot (or camera) pose per
+pair is shared by its C cameras.
 
 Semantics carried over (photoicp_pinhole.py:4-33, :140-175, :204-209):
   * nearest-pixel warp u = fx x'/z' + ox with C's round() (round_half_away);
@@ -24,26 +26,35 @@ Semantics carried over (photoicp_pinhole.py:4-33, :140-175, :204-209):
     SE(3) exponential, and an ill-posed level freezing every finer level's
     pose.
 
-The ``lax.while_loop`` of a level is a host loop with one device sync per
-iteration (two when a step is retried, which also costs a second sweep):
-the loop's scalars (step error, update norm, lambda) are read as f32 and
-updated in f32 on the host, as the JAX carry is.
+The ``lax.while_loop`` of a level, vmapped over pairs in the JAX package,
+is one host loop over the batch with the semantics of vmap-of-while: each
+pair carries its own pose, sweep state, lambda, accepted steps, last error
+drop and update norm and ill-posed flag as device tensors (f32, as the JAX
+carry), a pair whose loop condition fails keeps them bit for bit, and the
+loop runs while any pair is active. Each iteration reads the batch's flags
+once: how many pairs take the Levenberg-Marquardt retry (an active,
+well-posed pair whose first step raised its error) and whether any pair
+stays active. A retry round costs one more batched sweep and one more read.
+No pair's arithmetic depends on another's: every product and reduction has
+the same shape whatever B (``_matmul_unrolled``, ``_rig_grams``), so a
+pair aligned in a batch equals the pair aligned alone.
 
 Not ported (ROADMAP's do-not-port list): ``pack_target_channels`` /
 ``_gather_rows`` and the f16 gradient packing (photoicp_pinhole.py:151-155).
 The target is gathered from the f32 planes of ``pack_target_planes8`` by an
 exact index (photoicp._exact_gather), so the gradients stay f32. The jit
-entries become ``register_dense_photoicp`` and ``align_frames``. The sweep
-is plain torch ops on the tensors' device: the JAX package has no Pallas
-kernel on this path.
+entries become ``register_dense_photoicp`` (batched;
+parallel/batch.py::align_batch_rig) and ``align_frames``. The sweep is plain
+torch ops on the tensors' device: the JAX package has no Pallas kernel on
+this path.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from typing import NamedTuple, Optional, Tuple
 
-import numpy as np
 import torch
 
 from rgbd360_torch.ops import linalg6, se3
@@ -60,7 +71,8 @@ from rgbd360_torch.ops.photoicp import (
     MIN_DEPTH,
     _exact_gather,
     _huber_weight,
-    _normal_equations,
+    _matmul_unrolled,
+    _select,
     build_pyramid_set,
     make_level_data,
     pack_target_planes8,
@@ -69,14 +81,23 @@ from rgbd360_torch.utils import timing
 
 PINHOLE_THRES_DEPTH_OUTLIERS = 1.0  # reference RegisterPhotoICP.h:215, :4258-4259 (photoicp_pinhole.py:257)
 
-# Sweeps since the last reset_sweep_counts(): "sweeps" every fused sweep of
-# a level loop, "lm_retries" the Levenberg-Marquardt retries among them
-# (each costs one extra sweep).
+# Sweeps since the last reset_sweep_counts(): "sweeps" every batched sweep
+# of a level loop, "lm_retries" the batched Levenberg-Marquardt retry
+# sweeps among them.
 SWEEPS = timing.counter_group("photoicp_pinhole.SWEEPS", {"sweeps": 0, "lm_retries": 0})
+
+# The level loop's host side, in the same reset: "iterations" batched loop
+# bodies, "syncs" and "wait_ns" the loop's reads of the batch's flags
+# (utils/timing.py::host_sync), "host_ns" the wall time inside
+# align_frames_pinhole_batch, "pair_retries" the pairs that took the
+# Levenberg-Marquardt retry, summed over the retry rounds.
+GN = timing.counter_group("photoicp_pinhole.GN",
+                          {"iterations": 0, "syncs": 0, "wait_ns": 0, "host_ns": 0, "pair_retries": 0})
 
 
 def reset_sweep_counts() -> None:
     timing.reset_counts(SWEEPS)
+    timing.reset_counts(GN)
 
 
 def _k_level(k_full: torch.Tensor, level: int):
@@ -102,43 +123,62 @@ def pinhole_lut(depth: torch.Tensor, k_full: torch.Tensor, level: int):
     return torch.where(valid[..., None], xyz, torch.zeros_like(xyz)), valid
 
 
-def fused_sweep_pinhole(
-    gray_src_flat: torch.Tensor,  # (C, N) f32
-    planes: torch.Tensor,  # (C, H, 8, W) f32 (pack_target_planes8)
+def _rig_grams(rows: torch.Tensor, shape) -> torch.Tensor:
+    """sum_i a_i a_i^T over each pair's pixels and cameras: (B, C, T, N, K)
+    per-pixel rows of T terms -> (B, T, K, K).
+
+    As photoicp._pair_grams: one (K, W) x (W, K) product per image row,
+    then a sum over the rows and then over the cameras, each pair reduced
+    on its own by ops whose shapes do not depend on B (a batched reduction's
+    summation order does)."""
+    h, w = shape
+    c, t, k = rows.shape[1], rows.shape[2], rows.shape[-1]
+    grams = []
+    for a in rows:
+        ar = a.reshape(c * t * h, w, k)
+        grams.append((ar.transpose(-1, -2) @ ar).reshape(c, t, h, k, k).sum(dim=2).sum(dim=0))
+    return torch.stack(grams)
+
+
+def _sweep(
+    gray_src_flat: torch.Tensor,  # (B, C, N) f32
+    planes: torch.Tensor,  # (B*C, H, 8, W) f32 (pack_target_planes8)
     shape: Tuple[int, int],
-    xyz: torch.Tensor,  # (C, N, 3)
-    valid: torch.Tensor,  # (C, N) bool
-    pose: torch.Tensor,  # (4, 4): the robot pose (the camera pose when cam_rt is None)
+    xyz: torch.Tensor,  # (B, C, N, 3)
+    valid: torch.Tensor,  # (B, C, N) bool
+    pose: torch.Tensor,  # (B, 4, 4): the robot poses (the camera poses when cam_rt is None)
     k_full: torch.Tensor,  # (3, 3)
     level: int,
     method: int,
     cam_rt: Optional[torch.Tensor] = None,  # (C, 4, 4) robot-from-camera, or None
     occlusion: int = 0,
 ):
-    """One fused pass over C cameras: error + H + g at ``pose``, summed over
-    the cameras (photoicp_pinhole.py:92). Returns 0-dim tensors and H (6, 6),
-    g (6,): (err2_sum, n_terms, H, g, photo_err2, n_photo, depth_err2,
-    n_depth).
+    """One fused pass over B pairs of C cameras: error + H + g at each
+    pair's ``pose``, summed over its cameras (photoicp_pinhole.py:92).
+    Returns (err2_sum, n_terms, H, g, photo_err2, n_photo, depth_err2,
+    n_depth), each leading with B: H (B, 6, 6), g (B, 6), the rest (B,).
 
     occlusion: 1 = z-buffered closest-wins per camera (_Occ1), 2 =
     additionally reject points whose depth residual exceeds
     PINHOLE_THRES_DEPTH_OUTLIERS (_Occ2), with the plain pinhole error
     semantics over the visible set (photoicp_pinhole.py:108-116)."""
     h, w = shape
-    ncam = xyz.shape[0]
+    bsz, ncam = valid.shape[:2]
     fx, fy, ox, oy = _k_level(k_full, level)
+    rot = pose[:, None, :3, :3].transpose(-1, -2)  # (B, 1, 3, 3): rows x @ R^T
+    trans = pose[:, None, None, :3, 3]
 
     if cam_rt is None:
-        q = xyz @ pose[:3, :3].T + pose[:3, 3]  # camera-frame warped points
+        q = _matmul_unrolled(xyz, rot) + trans  # camera-frame warped points
         pr2 = q  # the Jacobian's anchor point
         r_basis = None  # the identity
     else:
         # robot frame: p_robot' = pose @ (cam_rt @ p_cam); q = cam_rt^-1 p_robot'
         r_cr = cam_rt[:, :3, :3]
         t_cr = cam_rt[:, None, :3, 3]
-        p_robot = xyz @ r_cr.transpose(-1, -2) + t_cr
-        pr2 = p_robot @ pose[:3, :3].T + pose[:3, 3]
-        q = (pr2 - t_cr) @ r_cr  # rows: R_cr^-1 (pr2 - t_cr), R_cr orthonormal
+        p_robot = _matmul_unrolled(xyz, r_cr.transpose(-1, -2)) + t_cr
+        pr2 = _matmul_unrolled(p_robot, rot) + trans
+        q = _matmul_unrolled(pr2 - t_cr, r_cr)  # rows: R_cr^-1 (pr2 - t_cr), R_cr orthonormal
         r_basis = r_cr.transpose(-1, -2)  # row chain: j3 @ R_cr^-1
 
     z = q[..., 2]
@@ -153,10 +193,11 @@ def fused_sweep_pinhole(
     visible = valid & inb
     rc = torch.clamp(r_int, 0, h - 1)
     cc = torch.clamp(c_int, 0, w - 1)
-    gray2, depth2, ggx, ggy, dgx, dgy = _exact_gather(planes, rc, cc)
+    gathered = _exact_gather(planes, rc.reshape(bsz * ncam, -1), cc.reshape(bsz * ncam, -1))
+    gray2, depth2, ggx, ggy, dgx, dgy = (x.reshape(bsz, ncam, -1) for x in gathered)
 
     if occlusion:
-        flat = (rc * w + cc).long()
+        flat = (rc * w + cc).long().reshape(bsz * ncam, -1)
         if occlusion >= 2:
             # dynamic-occlusion rejection before the z-buffer write, with the
             # intended depth2 - z (photoicp_pinhole.py:158-169)
@@ -164,10 +205,10 @@ def fused_sweep_pinhole(
             visible = visible & ~dynamic
         # z-buffer per camera: the closest source point per target pixel
         # survives, ties all survive (photoicp_pinhole.py:170-175)
-        z_inv_pos = torch.where(visible, 1.0 / torch.clamp(z, min=1e-12), torch.zeros_like(z))
-        zbuf = torch.zeros((ncam, h * w), dtype=z.dtype, device=z.device)
+        z_inv_pos = torch.where(visible, 1.0 / torch.clamp(z, min=1e-12), torch.zeros_like(z)).reshape(bsz * ncam, -1)
+        zbuf = torch.zeros((bsz * ncam, h * w), dtype=z.dtype, device=z.device)
         zbuf = zbuf.scatter_reduce(1, flat, z_inv_pos, reduce="amax", include_self=True)
-        visible = visible & (z_inv_pos >= torch.gather(zbuf, 1, flat))
+        visible = visible & (z_inv_pos >= torch.gather(zbuf, 1, flat)).reshape(bsz, ncam, -1)
 
     # pinhole projection Jacobian rows (d u/d q, d v/d q), reference :5167-5177
     zero = torch.zeros_like(z)
@@ -175,9 +216,9 @@ def fused_sweep_pinhole(
     j_v = torch.stack([zero, fy * z_inv, -fy * q[..., 1] * z_inv * z_inv], dim=-1)
 
     def chain(j3):
-        """(C, N, 3) camera-frame row gradient -> (C, N, 6) twist Jacobian:
-        j3 @ R_cr^-1 @ [I | -skew(pr2)] (reference :5160-5165)."""
-        j3r = j3 if r_basis is None else j3 @ r_basis
+        """(B, C, N, 3) camera-frame row gradient -> (B, C, N, 6) twist
+        Jacobian: j3 @ R_cr^-1 @ [I | -skew(pr2)] (reference :5160-5165)."""
+        j3r = j3 if r_basis is None else _matmul_unrolled(j3, r_basis)
         jw = torch.stack(
             [
                 pr2[..., 1] * j3r[..., 2] - pr2[..., 2] * j3r[..., 1],
@@ -187,16 +228,6 @@ def fused_sweep_pinhole(
             dim=-1,
         )
         return torch.cat([j3r, jw], dim=-1)
-
-    dev = xyz.device
-    H = torch.zeros((6, 6), dtype=torch.float32, device=dev)
-    g = torch.zeros((6,), dtype=torch.float32, device=dev)
-    photo_err2 = depth_err2 = torch.zeros((), dtype=torch.float32, device=dev)
-    n_photo = n_depth = torch.zeros((), dtype=torch.int32, device=dev)
-
-    def normal_equations(jac, res):
-        H_c, g_c = _normal_equations(jac, res, shape)
-        return H_c.sum(dim=0), g_c.sum(dim=0)
 
     # saliency gates the single-camera H/g only (photoicp_pinhole.py:204-220)
     if cam_rt is None:
@@ -211,37 +242,72 @@ def fused_sweep_pinhole(
     else:
         hg_ok = visible
 
-    if method in (PHOTO_CONSISTENCY, PHOTO_DEPTH):
-        diff = gray2 - gray_src_flat
-        wgt = _huber_weight(diff, STD_DEV_PHOTO) * (1.0 / STD_DEV_PHOTO)
-        res = torch.where(visible, wgt * diff, torch.zeros_like(diff))
-        jac = wgt[..., None] * (ggx[..., None] * chain(j_u) + ggy[..., None] * chain(j_v))
-        jac = torch.where(hg_ok[..., None], jac, torch.zeros_like(jac))
-        H_p, g_p = normal_equations(jac, torch.where(hg_ok, res, torch.zeros_like(res)))
-        H, g = H + H_p, g + g_p
-        photo_err2 = torch.sum(res * res)
-        n_photo = visible.sum(dtype=torch.int32)
+    # per term, the rows [J | r gated as H and g | r] reduced by _rig_grams:
+    # H, g and the error's sum of squares from one product
+    terms = ["photo"] if method in (PHOTO_CONSISTENCY, PHOTO_DEPTH) else []
     if method in (DEPTH_CONSISTENCY, PHOTO_DEPTH):
-        depth_ok = visible & torch.isfinite(depth2) & (depth2 > 0)
-        ddiff = depth2 - z
-        reg = STD_DEV_DEPTH * torch.clamp(z, min=1e-20)
-        wgt = _huber_weight(ddiff, reg) / reg
-        res = torch.where(depth_ok, wgt * ddiff, torch.zeros_like(ddiff))
-        j_z = chain(torch.tensor([0.0, 0.0, 1.0], device=dev).expand(q.shape))  # d z / d twist
-        jac = wgt[..., None] * (dgx[..., None] * chain(j_u) + dgy[..., None] * chain(j_v) - j_z)
-        hg_depth = depth_ok & hg_ok
-        jac = torch.where(hg_depth[..., None], jac, torch.zeros_like(jac))
-        H_d, g_d = normal_equations(jac, torch.where(hg_depth, res, torch.zeros_like(res)))
-        H, g = H + H_d, g + g_d
-        depth_err2 = torch.sum(res * res)
-        n_depth = depth_ok.sum(dtype=torch.int32)
+        terms.append("depth")
+    rows = torch.empty((bsz, ncam, len(terms), h * w, 8), dtype=torch.float32, device=xyz.device)
+    cj_u, cj_v = chain(j_u), chain(j_v)
+    counts = {}
+    for k, name in enumerate(terms):
+        if name == "photo":
+            ok, ok_hg = visible, hg_ok
+            diff = gray2 - gray_src_flat
+            wgt = _huber_weight(diff, STD_DEV_PHOTO) * (1.0 / STD_DEV_PHOTO)
+            jac = wgt[..., None] * (ggx[..., None] * cj_u + ggy[..., None] * cj_v)
+        else:
+            ok = visible & torch.isfinite(depth2) & (depth2 > 0)
+            ok_hg = ok & hg_ok
+            diff = depth2 - z
+            reg = STD_DEV_DEPTH * torch.clamp(z, min=1e-20)
+            wgt = _huber_weight(diff, reg) / reg
+            j_z = chain(torch.stack([zero, zero, torch.ones_like(z)], dim=-1))  # d z / d twist
+            jac = wgt[..., None] * (dgx[..., None] * cj_u + dgy[..., None] * cj_v - j_z)
+        res = torch.where(ok, wgt * diff, torch.zeros_like(diff))
+        torch.where(ok_hg[..., None], jac, torch.zeros((), device=jac.device), out=rows[:, :, k, :, :6])
+        torch.where(ok_hg, res, torch.zeros((), device=res.device), out=rows[:, :, k, :, 6])
+        rows[:, :, k, :, 7] = res
+        counts[name] = ok.sum(dim=(1, 2), dtype=torch.int32)
+    grams = _rig_grams(rows, shape)
 
-    err2 = photo_err2 + depth_err2
-    return err2, n_photo + n_depth, H, g, photo_err2, n_photo, depth_err2, n_depth
+    zero_f = torch.zeros((bsz,), dtype=torch.float32, device=xyz.device)
+    zero_i = torch.zeros((bsz,), dtype=torch.int32, device=xyz.device)
+    H = torch.zeros((bsz, 6, 6), dtype=torch.float32, device=xyz.device)
+    g = torch.zeros((bsz, 6), dtype=torch.float32, device=xyz.device)
+    err2 = {"photo": zero_f, "depth": zero_f}
+    for k, name in enumerate(terms):
+        H, g = H + grams[:, k, :6, :6], g + grams[:, k, :6, 6]
+        err2[name] = grams[:, k, 7, 7]
+    n_photo, n_depth = counts.get("photo", zero_i), counts.get("depth", zero_i)
+    return (err2["photo"] + err2["depth"], n_photo + n_depth, H, g, err2["photo"], n_photo, err2["depth"],
+            n_depth)
+
+
+def fused_sweep_pinhole(
+    gray_src_flat: torch.Tensor,  # (C, N) f32
+    planes: torch.Tensor,  # (C, H, 8, W) f32 (pack_target_planes8)
+    shape: Tuple[int, int],
+    xyz: torch.Tensor,  # (C, N, 3)
+    valid: torch.Tensor,  # (C, N) bool
+    pose: torch.Tensor,  # (4, 4): the robot pose (the camera pose when cam_rt is None)
+    k_full: torch.Tensor,  # (3, 3)
+    level: int,
+    method: int,
+    cam_rt: Optional[torch.Tensor] = None,  # (C, 4, 4) robot-from-camera, or None
+    occlusion: int = 0,
+):
+    """_sweep for one pair: 0-dim tensors and H (6, 6), g (6,):
+    (err2_sum, n_terms, H, g, photo_err2, n_photo, depth_err2, n_depth)."""
+    out = _sweep(gray_src_flat[None], planes, shape, xyz[None], valid[None], pose[None], k_full, level, method,
+                 cam_rt, occlusion)
+    return tuple(x[0] for x in out)
 
 
 class PinholeAlignResult(NamedTuple):
-    """photoicp_pinhole.py:260; tensors on the inputs' device."""
+    """photoicp_pinhole.py:260; tensors on the inputs' device, each leading
+    with the pair axis B from the batched entries (register_dense_photoicp,
+    align_frames_pinhole_batch), without it from the one-pair ones."""
 
     pose: torch.Tensor  # (4, 4)
     hessian: torch.Tensor  # (6, 6) at the final accepted pose, finest level
@@ -253,77 +319,186 @@ class PinholeAlignResult(NamedTuple):
     ill_posed: torch.Tensor  # () bool
 
 
-def _align_level_pinhole(level: LevelData, k_full, lvl_idx: int, pose0, method: int, *, max_iters: int,
-                         tol_update: float, tol_residual: float, lm_lambda0: float, lm_step: float,
-                         cam_rts=None, occlusion: int = 0):
-    """One level of the shared GN + LM loop (photoicp_pinhole.py:271) over
-    the C cameras of ``level`` ((C, H, W) fields). Returns (pose, state,
-    iterations, ill_posed), the last two on the host."""
-    shape = tuple(level.gray_src.shape[-2:])
-    num_cams = level.gray_src.shape[0]
+class _Carry(NamedTuple):
+    """What each pair carries from one loop body to the next (the JAX
+    carry, photoicp_pinhole.py:328)."""
+
+    pose: torch.Tensor  # (B, 4, 4)
+    state: tuple  # the sweep's 8 outputs at pose
+    lam: torch.Tensor  # (B,) f32
+    it: torch.Tensor  # (B,) i32 accepted steps
+    diff: torch.Tensor  # (B,) f32 the last step's error drop
+    upd: torch.Tensor  # (B,) f32 the last step's update norm
+    ill: torch.Tensor  # (B,) bool
+
+
+class _Step(NamedTuple):
+    """One tried step of every pair."""
+
+    pose: torch.Tensor
+    state: tuple
+    dstep: torch.Tensor  # (B,) error at the carry less error at pose
+    update: torch.Tensor  # (B, 6)
+    solve_ok: torch.Tensor  # (B,) bool
+
+
+def _norm6(x: torch.Tensor) -> torch.Tensor:
+    """|x| over the last axis of (..., 6), summed in order (the same bits
+    whatever the leading shape)."""
+    s = x[..., 0] * x[..., 0]
+    for k in range(1, x.shape[-1]):
+        s = s + x[..., k] * x[..., k]
+    return torch.sqrt(s)
+
+
+def _read_flags(retry: torch.Tensor, active: torch.Tensor):
+    """The loop's one read of the batch: (pairs to retry, any pair active)."""
+    n_retry, n_active = torch.stack([retry.sum(), active.sum()]).tolist()
+    return n_retry, n_active > 0
+
+
+def _align_level(level: LevelData, k_full, lvl_idx: int, pose0, method: int, *, max_iters: int, tol_update: float,
+                 tol_residual: float, lm_lambda0: float, lm_step: float, cam_rts=None, occlusion: int = 0):
+    """One level of the shared GN + LM loop (photoicp_pinhole.py:271) for B
+    pairs of C cameras ((B, C, H, W) fields of ``level``), vmap-of-while as
+    the module's docstring says. Returns (pose, state, iterations,
+    ill_posed), each leading with B."""
+    bsz, ncam = level.gray_src.shape[:2]
+    h, w = shape = tuple(level.gray_src.shape[-2:])
+    dev = pose0.device
     xyz, valid = pinhole_lut(level.depth_src, k_full, lvl_idx)
-    gray_src_flat = level.gray_src.reshape(num_cams, -1)
-    planes = pack_target_planes8(level)
-    eye6 = torch.eye(6, dtype=torch.float32, device=pose0.device)
-    f32 = np.float32
+    gray_src_flat = level.gray_src.reshape(bsz, ncam, -1)
+    planes = pack_target_planes8(level).reshape(bsz * ncam, h, 8, w)
+    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+    lam0 = torch.full((bsz,), lm_lambda0, dtype=torch.float32, device=dev)
 
     def sweep(pose):
         timing.count(SWEEPS, "sweeps")
-        return fused_sweep_pinhole(gray_src_flat, planes, shape, xyz, valid, pose, k_full, lvl_idx, method,
-                                   cam_rts, occlusion)
+        return _sweep(gray_src_flat, planes, shape, xyz, valid, pose, k_full, lvl_idx, method, cam_rts, occlusion)
 
     def error_of(state):
         # one camera: ~avResidual scale (reference errorPhotoICP :759-762);
         # several: the raw sum of squares (calcPhotoICPError_robot)
-        if num_cams == 1:
+        if ncam == 1:
             return torch.sqrt(state[0] / torch.clamp(state[1], min=1).to(torch.float32))
         return state[0]
+
+    def active_of(c: _Carry):
+        return (c.it < max_iters) & (c.upd > tol_update) & (c.diff > tol_residual) & ~c.ill
+
+    def try_step(c: _Carry, ok, damp) -> _Step:
+        H, g = c.state[2], c.state[3]
+        # the (~ok)*I guard keeps the solve finite on an ill-posed pair
+        x, solve_ok = linalg6.solve6_sym(H + damp[:, None, None] * (eye6 * H) + (~ok).to(H.dtype)[:, None, None] * eye6,
+                                         g)
+        update = -x
+        new_pose = _matmul_unrolled(se3.exp_se3(update, pseudo=False), c.pose)
+        new_state = sweep(new_pose)
+        return _Step(new_pose, new_state, error_of(c.state) - error_of(new_state), update, solve_ok)
+
+    def accept(c: _Carry, active, ok, s: _Step) -> _Carry:
+        ok = ok & s.solve_ok
+        take = active & ok & (s.dstep > 0)
+        zero = torch.zeros_like(s.dstep)
+        return _Carry(
+            _select(take, s.pose, c.pose),
+            tuple(_select(take, n, o) for n, o in zip(s.state, c.state)),
+            torch.where(active, torch.where(take, c.lam / lm_step, c.lam * lm_step), c.lam),
+            c.it + take.to(torch.int32),
+            torch.where(active, torch.where(ok, s.dstep, zero), c.diff),
+            torch.where(active, torch.where(ok, _norm6(s.update), zero), c.upd),
+            c.ill | (active & ~ok),
+        )
 
     # the main solve is plain Gauss-Newton for one camera (reference
     # RegisterPhotoICP.h:4693) and lambda-damped for several
     # (RegisterRGBD360.h:423-501); a rejected first step gets one retry at
     # raised damping (photoicp_pinhole.py:315-350)
-    always_damped = num_cams > 1
+    damped = ncam > 1
+    state0 = sweep(pose0)
+    c = _Carry(pose0, state0, lam0, torch.zeros((bsz,), dtype=torch.int32, device=dev), error_of(state0) + 1.0,
+               torch.full((bsz,), math.sqrt(6.0), dtype=torch.float32, device=dev),
+               torch.zeros((bsz,), dtype=torch.bool, device=dev))
+    # every pair with a finite error starts active; a body in which none is
+    # active changes nothing, so the first loop test is not read
+    active = active_of(c)
+    more = max_iters > 0
+    while more:
+        timing.count(GN, "iterations")
+        with timing.span("rig iteration"):
+            ok = linalg6.spd_well_posed(c.state[2], c.lam[:, None, None])
+            first = try_step(c, ok, c.lam if damped else torch.zeros_like(c.lam))
+            retry = active & ok & (first.dstep <= 0)
+            nxt = accept(c, active, ok, first)
+            n_retry, more = timing.host_sync(_read_flags, retry, active_of(nxt))
+            if n_retry:
+                timing.count(SWEEPS, "lm_retries")
+                timing.count(GN, "pair_retries", n_retry)
+                second = try_step(c, ok, torch.maximum(c.lam, lam0) * lm_step)
+                step = _Step(
+                    _select(retry, second.pose, first.pose),
+                    tuple(_select(retry, s, f) for s, f in zip(second.state, first.state)),
+                    *(_select(retry, s, f) for s, f in zip(second[2:], first[2:])),
+                )
+                nxt = accept(c, active, ok, step)
+                more = timing.host_sync(bool, active_of(nxt).any())
+            c = nxt
+            active = active_of(c)
+    return c.pose, c.state, c.it, c.ill
 
-    def try_step(state, pose, H, g, ok, damp):
-        """(new_pose, new_state, host f32 [dstep, |update|, solve ok, ok]):
-        the iteration's one read-back."""
-        x, sok = linalg6.solve6_sym(H + damp * (eye6 * H) + (~ok).to(H.dtype) * eye6, g)
-        update = -x
-        new_pose = se3.exp_se3(update, pseudo=False) @ pose
-        new_state = sweep(new_pose)
-        dstep = error_of(state) - error_of(new_state)
-        flags = torch.stack([sok, ok]).to(torch.float32)
-        host = torch.cat([torch.stack([dstep, torch.linalg.vector_norm(update)]), flags]).cpu().numpy()
-        return new_pose, new_state, host
 
-    state = sweep(pose0)
-    pose = pose0
-    diff = f32(error_of(state).item()) + f32(1.0)
-    upd = f32(math.sqrt(6.0))
-    it = 0
-    lam = f32(lm_lambda0)
-    ill = False
-    while it < max_iters and upd > f32(tol_update) and diff > f32(tol_residual) and not ill:
-        H, g = state[2], state[3]
-        ok_t = linalg6.spd_well_posed(H, float(lam))
-        new_pose, new_state, host = try_step(state, pose, H, g, ok_t, float(lam) if always_damped else 0.0)
-        ok = bool(host[3])
-        if ok and host[0] <= 0:
-            timing.count(SWEEPS, "lm_retries")
-            damp = max(lam, f32(lm_lambda0)) * f32(lm_step)
-            new_pose, new_state, host = try_step(state, pose, H, g, ok_t, float(damp))
-        dstep, norm, sok = host[0], host[1], host[2]
-        ok = ok and bool(sok)
-        accept = ok and dstep > 0
-        if accept:
-            pose, state = new_pose, new_state
-        lam = lam / f32(lm_step) if accept else lam * f32(lm_step)
-        it += int(accept)
-        diff = dstep if ok else f32(0.0)
-        upd = norm if ok else f32(0.0)
-        ill = ill or not ok
-    return pose, state, it, ill
+def align_frames_pinhole_batch(
+    src_pyrs,
+    trg_pyrs,
+    k_full: torch.Tensor,
+    pose_guess: torch.Tensor,
+    method: int = PHOTO_DEPTH,
+    cam_rts: Optional[torch.Tensor] = None,
+    n_levels: int = 4,
+    max_iters: int = 10,
+    occlusion: int = 0,
+) -> PinholeAlignResult:
+    """alignFrames (reference :4254, cam_rts None) or the
+    RegisterDensePhotoICP level loop (RegisterRGBD360.h:383-506, cam_rts =
+    the C extrinsics) (photoicp_pinhole.py:367) for B pairs. Pyramid levels
+    are (B, C, H, W), C = 1 for one camera; pose_guess (B, 4, 4).
+
+    Counted in GN; traced as the spans "rig align" > "rig level" > "rig
+    iteration", with "GN sync" around each read of the batch's flags."""
+    t_enter = time.perf_counter_ns()
+    pose = pose_guess.to(torch.float32)
+    bsz = pose.shape[0]
+    single = cam_rts is None
+    ill_any = torch.zeros((bsz,), dtype=torch.bool, device=pose.device)
+    iters = []
+    last = None
+    with timing.span("rig align", B=bsz, levels=n_levels), timing.sync_scope(GN, "GN sync"):
+        for lvl in range(n_levels - 1, -1, -1):
+            level = make_level_data(src_pyrs, trg_pyrs, lvl)
+            with timing.span("rig level", level=lvl):
+                pose_new, state, it, ill = _align_level(
+                    level, k_full, lvl, pose, method, max_iters=max_iters,
+                    tol_update=1e-4 if single else 1e-6, tol_residual=1e-4 if single else 1e-1,
+                    lm_lambda0=0.01 if single else 0.001, lm_step=10.0, cam_rts=cam_rts, occlusion=occlusion,
+                )
+            # an ill-posed level freezes the pose of every finer level (:395)
+            pose = _select(ill_any, pose, pose_new)
+            ill_any = ill_any | ill
+            iters.append(it)
+            last = state
+    err2, n, H, g, pe2, nph, de2, nd = last
+    mean = lambda s, k: torch.sqrt(s / torch.clamp(k, min=1).to(torch.float32))
+    result = PinholeAlignResult(
+        pose=pose, hessian=H, gradient=g, error=mean(err2, n),
+        av_photo_residual=mean(pe2, nph), av_depth_residual=mean(de2, nd),
+        num_iterations=torch.stack(iters, dim=1), ill_posed=ill_any,
+    )
+    timing.count(GN, "host_ns", time.perf_counter_ns() - t_enter)
+    return result
+
+
+def _one_pair(pyrs):
+    return tuple([lv[None] for lv in part] for part in pyrs)
 
 
 def align_frames_pinhole(
@@ -337,55 +512,30 @@ def align_frames_pinhole(
     max_iters: int = 10,
     occlusion: int = 0,
 ) -> PinholeAlignResult:
-    """alignFrames (reference :4254, cam_rts None) or the
-    RegisterDensePhotoICP level loop (RegisterRGBD360.h:383-506, cam_rts =
-    the C extrinsics) (photoicp_pinhole.py:367). Pyramid levels are
-    (C, H, W), C = 1 for one camera."""
-    pose = pose_guess.to(torch.float32)
-    single = cam_rts is None
-    iters = []
-    ill_any = False
-    last = None
-    for lvl in range(n_levels - 1, -1, -1):
-        level = make_level_data(src_pyrs, trg_pyrs, lvl)
-        pose_new, state, it, ill = _align_level_pinhole(
-            level, k_full, lvl, pose, method, max_iters=max_iters,
-            tol_update=1e-4 if single else 1e-6, tol_residual=1e-4 if single else 1e-1,
-            lm_lambda0=0.01 if single else 0.001, lm_step=10.0, cam_rts=cam_rts, occlusion=occlusion,
-        )
-        # an ill-posed level freezes the pose of every finer level (:395)
-        if not ill_any:
-            pose = pose_new
-        ill_any = ill_any or ill
-        iters.append(it)
-        last = state
-    err2, n, H, g, pe2, nph, de2, nd = last
-    mean = lambda s, k: torch.sqrt(s / torch.clamp(k, min=1).to(torch.float32))
-    dev = pose.device
-    return PinholeAlignResult(
-        pose=pose, hessian=H, gradient=g, error=mean(err2, n),
-        av_photo_residual=mean(pe2, nph), av_depth_residual=mean(de2, nd),
-        num_iterations=torch.tensor(iters, dtype=torch.int32, device=dev),
-        ill_posed=torch.tensor(ill_any, device=dev),
-    )
+    """align_frames_pinhole_batch for one pair: pyramid levels (C, H, W),
+    pose_guess (4, 4); the result without the pair axis."""
+    res = align_frames_pinhole_batch(_one_pair(src_pyrs), _one_pair(trg_pyrs), k_full, pose_guess[None], method,
+                                     cam_rts, n_levels, max_iters, occlusion)
+    return PinholeAlignResult(*(x[0] for x in res))
 
 
 def register_dense_photoicp(
-    gray_src: torch.Tensor,  # (C, H, W) f32: the sensors of frame2 (the source)
-    depth_src: torch.Tensor,  # (C, H, W) f32 metres
+    gray_src: torch.Tensor,  # (B, C, H, W) f32: the sensors of each pair's source frame
+    depth_src: torch.Tensor,  # (B, C, H, W) f32 metres
     gray_trg: torch.Tensor,
     depth_trg: torch.Tensor,
     cam_rts: torch.Tensor,  # (C, 4, 4) f32 sensor extrinsics
     k_full: torch.Tensor,  # (3, 3)
-    pose_guess: torch.Tensor,  # (4, 4)
+    pose_guess: torch.Tensor,  # (B, 4, 4)
     method: int = PHOTO_DEPTH,
     n_levels: int = 4,
 ) -> PinholeAlignResult:
-    """RegisterDensePhotoICP: one robot pose optimized from all C cameras
-    (reference RegisterRGBD360.h:344-516; photoicp_pinhole.py:413)."""
+    """RegisterDensePhotoICP for B pairs: per pair one robot pose optimized
+    from all C cameras (reference RegisterRGBD360.h:344-516;
+    photoicp_pinhole.py:413). Every field of the result leads with B."""
     src = build_pyramid_set(gray_src, depth_src, n_levels, is_target=False, sphere_seam_mask=False)
     trg = build_pyramid_set(gray_trg, depth_trg, n_levels, is_target=True, sphere_seam_mask=False)
-    return align_frames_pinhole(src, trg, k_full, pose_guess, method, cam_rts=cam_rts, n_levels=n_levels)
+    return align_frames_pinhole_batch(src, trg, k_full, pose_guess, method, cam_rts=cam_rts, n_levels=n_levels)
 
 
 def align_frames(
