@@ -35,6 +35,9 @@ loop runs while any pair is active. Each iteration reads the batch's flags
 once: how many pairs take the Levenberg-Marquardt retry (an active,
 well-posed pair whose first step raised its error) and whether any pair
 stays active. A retry round costs one more batched sweep and one more read.
+On a CUDA device each level's first sweep, loop body and retry round
+replay from CUDA graphs (_LevelGraphs), bit for bit the kernels of the
+op-by-op loop, which the CPU runs; the reads stay as they are.
 No pair's arithmetic depends on another's: every product and reduction has
 the same shape whatever B (``_matmul_unrolled``, ``_rig_grams``), so a
 pair aligned in a batch equals the pair aligned alone.
@@ -44,20 +47,22 @@ Not ported (ROADMAP's do-not-port list): ``pack_target_channels`` /
 The target is gathered from the f32 planes of ``pack_target_planes8`` by an
 exact index (photoicp._exact_gather), so the gradients stay f32. The jit
 entries become ``register_dense_photoicp`` (batched;
-parallel/batch.py::align_batch_rig) and ``align_frames``. The sweep is plain
-torch ops on the tensors' device: the JAX package has no Pallas kernel on
-this path.
+parallel/batch.py::align_batch_rig) and ``align_frames``, and the level's
+CUDA graphs take jit's place on the card. The sweep is plain torch ops on
+the tensors' device: the JAX package has no Pallas kernel on this path.
 """
 
 from __future__ import annotations
 
 import math
+import threading
 import time
+from types import SimpleNamespace
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from rgbd360_torch.ops import linalg6, se3
+from rgbd360_torch.ops import linalg6, photoicp, se3
 from rgbd360_torch.ops.image import round_half_away
 from rgbd360_torch.ops.photoicp import (
     DEPTH_CONSISTENCY,
@@ -94,10 +99,18 @@ SWEEPS = timing.counter_group("photoicp_pinhole.SWEEPS", {"sweeps": 0, "lm_retri
 GN = timing.counter_group("photoicp_pinhole.GN",
                           {"iterations": 0, "syncs": 0, "wait_ns": 0, "host_ns": 0, "pair_retries": 0})
 
+# The level loop's CUDA graphs, in the same reset: "captures" the graphs
+# captured (three a key), "replays" the first sweeps, loop bodies and retry
+# rounds replayed from them, "eager_bodies" the loop bodies run op by op
+# (every body off a CUDA device; a key's first use; a key beyond the byte
+# bound). Replayed bodies are GN's iterations less eager_bodies.
+GRAPHS = timing.counter_group("photoicp_pinhole.GRAPHS", {"captures": 0, "replays": 0, "eager_bodies": 0})
+
 
 def reset_sweep_counts() -> None:
     timing.reset_counts(SWEEPS)
     timing.reset_counts(GN)
+    timing.reset_counts(GRAPHS)
 
 
 def _k_level(k_full: torch.Tensor, level: int):
@@ -331,6 +344,16 @@ class _Carry(NamedTuple):
     upd: torch.Tensor  # (B,) f32 the last step's update norm
     ill: torch.Tensor  # (B,) bool
 
+    def flat(self) -> list:
+        return [self.pose, *self.state, self.lam, self.it, self.diff, self.upd, self.ill]
+
+    @staticmethod
+    def unflat(ts) -> "_Carry":
+        return _Carry(ts[0], tuple(ts[1:9]), *ts[9:])
+
+    def copy(self) -> "_Carry":
+        return _Carry.unflat([t.clone() for t in self.flat()])
+
 
 class _Step(NamedTuple):
     """One tried step of every pair."""
@@ -342,6 +365,23 @@ class _Step(NamedTuple):
     solve_ok: torch.Tensor  # (B,) bool
 
 
+class _LoopSpec(NamedTuple):
+    """What one level's loop runs with; with the device and B, the key of
+    its CUDA graphs."""
+
+    shape: Tuple[int, int]
+    ncam: int
+    level: int  # the pyramid level: the camera matrix's scale
+    method: int
+    occlusion: int
+    max_iters: int
+    tol_update: float
+    tol_residual: float
+    lm_lambda0: float
+    lm_step: float
+    dtypes: tuple  # of the level's 8 images, k_full and cam_rts (None: one camera's frame)
+
+
 def _norm6(x: torch.Tensor) -> torch.Tensor:
     """|x| over the last axis of (..., 6), summed in order (the same bits
     whatever the leading shape)."""
@@ -351,52 +391,73 @@ def _norm6(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(s)
 
 
-def _read_flags(retry: torch.Tensor, active: torch.Tensor):
+def _flags(retry: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """The batch's flags on the device: (pairs to retry, pairs active)."""
+    return torch.stack([retry.sum(), active.sum()])
+
+
+def _read_flags(flags: torch.Tensor):
     """The loop's one read of the batch: (pairs to retry, any pair active)."""
-    n_retry, n_active = torch.stack([retry.sum(), active.sum()]).tolist()
+    n_retry, n_active = flags.tolist()
     return n_retry, n_active > 0
 
 
-def _align_level(level: LevelData, k_full, lvl_idx: int, pose0, method: int, *, max_iters: int, tol_update: float,
-                 tol_residual: float, lm_lambda0: float, lm_step: float, cam_rts=None, occlusion: int = 0):
-    """One level of the shared GN + LM loop (photoicp_pinhole.py:271) for B
-    pairs of C cameras ((B, C, H, W) fields of ``level``), vmap-of-while as
-    the module's docstring says. Returns (pose, state, iterations,
-    ill_posed), each leading with B."""
-    bsz, ncam = level.gray_src.shape[:2]
-    h, w = shape = tuple(level.gray_src.shape[-2:])
-    dev = pose0.device
-    xyz, valid = pinhole_lut(level.depth_src, k_full, lvl_idx)
-    gray_src_flat = level.gray_src.reshape(bsz, ncam, -1)
-    planes = pack_target_planes8(level).reshape(bsz * ncam, h, 8, w)
-    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
-    lam0 = torch.full((bsz,), lm_lambda0, dtype=torch.float32, device=dev)
+class _Level:
+    """One level's loop arithmetic for B pairs of C cameras: the sweep at a
+    pose and the parts of a loop body. The op-by-op loop and the CUDA
+    graphs' segments both run it, so both issue the same kernels. It counts
+    nothing: a count inside a captured segment would fire once, at the
+    capture, so the loops count on the host."""
 
-    def sweep(pose):
-        timing.count(SWEEPS, "sweeps")
-        return _sweep(gray_src_flat, planes, shape, xyz, valid, pose, k_full, lvl_idx, method, cam_rts, occlusion)
+    def __init__(self, spec: _LoopSpec, gray_src, depth_src, planes, k_full, cam_rts):
+        bsz = gray_src.shape[0]
+        dev = gray_src.device
+        self.spec = spec
+        self.xyz, self.valid = pinhole_lut(depth_src, k_full, spec.level)
+        self.gray_src_flat = gray_src.reshape(bsz, spec.ncam, -1)
+        self.planes = planes  # (B*C, H, 8, W)
+        self.k_full, self.cam_rts = k_full, cam_rts
+        self.eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+        self.lam0 = torch.full((bsz,), spec.lm_lambda0, dtype=torch.float32, device=dev)
 
-    def error_of(state):
+    def sweep(self, pose):
+        s = self.spec
+        return _sweep(self.gray_src_flat, self.planes, s.shape, self.xyz, self.valid, pose, self.k_full, s.level,
+                      s.method, self.cam_rts, s.occlusion)
+
+    def error_of(self, state):
         # one camera: ~avResidual scale (reference errorPhotoICP :759-762);
         # several: the raw sum of squares (calcPhotoICPError_robot)
-        if ncam == 1:
+        if self.spec.ncam == 1:
             return torch.sqrt(state[0] / torch.clamp(state[1], min=1).to(torch.float32))
         return state[0]
 
-    def active_of(c: _Carry):
-        return (c.it < max_iters) & (c.upd > tol_update) & (c.diff > tol_residual) & ~c.ill
+    def init(self, pose0) -> _Carry:
+        """The carry at pose0, after the level's first sweep."""
+        bsz, dev = pose0.shape[0], pose0.device
+        state0 = self.sweep(pose0)
+        return _Carry(pose0, state0, self.lam0, torch.zeros((bsz,), dtype=torch.int32, device=dev),
+                      self.error_of(state0) + 1.0,
+                      torch.full((bsz,), math.sqrt(6.0), dtype=torch.float32, device=dev),
+                      torch.zeros((bsz,), dtype=torch.bool, device=dev))
 
-    def try_step(c: _Carry, ok, damp) -> _Step:
+    def active_of(self, c: _Carry):
+        s = self.spec
+        return (c.it < s.max_iters) & (c.upd > s.tol_update) & (c.diff > s.tol_residual) & ~c.ill
+
+    def try_step(self, c: _Carry, ok, damp) -> _Step:
         H, g = c.state[2], c.state[3]
+        eye6 = self.eye6
         # the (~ok)*I guard keeps the solve finite on an ill-posed pair
         x, solve_ok = linalg6.solve6_sym(H + damp[:, None, None] * (eye6 * H) + (~ok).to(H.dtype)[:, None, None] * eye6,
                                          g)
         update = -x
         new_pose = _matmul_unrolled(se3.exp_se3(update, pseudo=False), c.pose)
-        new_state = sweep(new_pose)
-        return _Step(new_pose, new_state, error_of(c.state) - error_of(new_state), update, solve_ok)
+        new_state = self.sweep(new_pose)
+        return _Step(new_pose, new_state, self.error_of(c.state) - self.error_of(new_state), update, solve_ok)
 
-    def accept(c: _Carry, active, ok, s: _Step) -> _Carry:
+    def accept(self, c: _Carry, active, ok, s: _Step) -> _Carry:
+        lm_step = self.spec.lm_step
         ok = ok & s.solve_ok
         take = active & ok & (s.dstep > 0)
         zero = torch.zeros_like(s.dstep)
@@ -410,40 +471,232 @@ def _align_level(level: LevelData, k_full, lvl_idx: int, pose0, method: int, *, 
             c.ill | (active & ~ok),
         )
 
-    # the main solve is plain Gauss-Newton for one camera (reference
-    # RegisterPhotoICP.h:4693) and lambda-damped for several
-    # (RegisterRGBD360.h:423-501); a rejected first step gets one retry at
-    # raised damping (photoicp_pinhole.py:315-350)
-    damped = ncam > 1
-    state0 = sweep(pose0)
-    c = _Carry(pose0, state0, lam0, torch.zeros((bsz,), dtype=torch.int32, device=dev), error_of(state0) + 1.0,
-               torch.full((bsz,), math.sqrt(6.0), dtype=torch.float32, device=dev),
-               torch.zeros((bsz,), dtype=torch.bool, device=dev))
+    def body(self, c: _Carry, active):
+        """A loop body's first step: (ok, the step, the pairs to retry, the
+        carry after the step). The main solve is plain Gauss-Newton for one
+        camera (reference RegisterPhotoICP.h:4693) and lambda-damped for
+        several (RegisterRGBD360.h:423-501)."""
+        ok = linalg6.spd_well_posed(c.state[2], c.lam[:, None, None])
+        first = self.try_step(c, ok, c.lam if self.spec.ncam > 1 else torch.zeros_like(c.lam))
+        retry = active & ok & (first.dstep <= 0)
+        return ok, first, retry, self.accept(c, active, ok, first)
+
+    def retry_round(self, c: _Carry, active, ok, first: _Step, retry) -> _Carry:
+        """The carry after the body when the pairs ``retry`` retry their
+        rejected first step at raised damping (photoicp_pinhole.py:315-350),
+        from the carry ``c`` as it stood before the body."""
+        second = self.try_step(c, ok, torch.maximum(c.lam, self.lam0) * self.spec.lm_step)
+        step = _Step(
+            _select(retry, second.pose, first.pose),
+            tuple(_select(retry, s, f) for s, f in zip(second.state, first.state)),
+            *(_select(retry, s, f) for s, f in zip(second[2:], first[2:])),
+        )
+        return self.accept(c, active, ok, step)
+
+
+def _count_retry_round(n_retry: int) -> None:
+    timing.count(SWEEPS, "lm_retries")
+    timing.count(GN, "pair_retries", n_retry)
+
+
+def _loop_eager(lv: _Level, pose0: torch.Tensor) -> _Carry:
+    """The level's loop op by op."""
+    timing.count(SWEEPS, "sweeps")
+    c = lv.init(pose0)
     # every pair with a finite error starts active; a body in which none is
     # active changes nothing, so the first loop test is not read
-    active = active_of(c)
-    more = max_iters > 0
+    active = lv.active_of(c)
+    more = lv.spec.max_iters > 0
     while more:
         timing.count(GN, "iterations")
+        timing.count(GRAPHS, "eager_bodies")
         with timing.span("rig iteration"):
-            ok = linalg6.spd_well_posed(c.state[2], c.lam[:, None, None])
-            first = try_step(c, ok, c.lam if damped else torch.zeros_like(c.lam))
-            retry = active & ok & (first.dstep <= 0)
-            nxt = accept(c, active, ok, first)
-            n_retry, more = timing.host_sync(_read_flags, retry, active_of(nxt))
+            timing.count(SWEEPS, "sweeps")
+            ok, first, retry, nxt = lv.body(c, active)
+            n_retry, more = timing.host_sync(_read_flags, _flags(retry, lv.active_of(nxt)))
             if n_retry:
-                timing.count(SWEEPS, "lm_retries")
-                timing.count(GN, "pair_retries", n_retry)
-                second = try_step(c, ok, torch.maximum(c.lam, lam0) * lm_step)
-                step = _Step(
-                    _select(retry, second.pose, first.pose),
-                    tuple(_select(retry, s, f) for s, f in zip(second.state, first.state)),
-                    *(_select(retry, s, f) for s, f in zip(second[2:], first[2:])),
-                )
-                nxt = accept(c, active, ok, step)
-                more = timing.host_sync(bool, active_of(nxt).any())
+                timing.count(SWEEPS, "sweeps")
+                _count_retry_round(n_retry)
+                nxt = lv.retry_round(c, active, ok, first, retry)
+                more = timing.host_sync(bool, lv.active_of(nxt).any())
             c = nxt
-            active = active_of(c)
+            active = lv.active_of(c)
+    return c
+
+
+# -- the loop from CUDA graphs ---------------------------------------------------
+#
+# On a CUDA device the loop is host issue: some 1,070 small kernels a body
+# and 800 more a retry round, each a few microseconds on the card. So each
+# level replays its work from three CUDA graphs:
+#   first sweep:  the backprojection LUT, the sweep at pose0, the carry
+#   loop body:    a copy of the carry, the first step and its sweep, accept,
+#                 the flags (pairs to retry, pairs active)
+#   retry round:  the second step from the copy, the per-pair select,
+#                 accept, any pair active
+# The carry lives in the key's buffers and is updated in place; the host
+# reads the flags once per body and once more per retry round, as op by op.
+# A graph runs the kernels of the op-by-op loop on the same shapes, so the
+# result is bit for bit the op-by-op one. The capture rules, lock and byte
+# bound are the spherical loop's (ops/photoicp.py): a key is captured at
+# its second use, per thread, within photoicp.GRAPH_BYTES_PER_THREAD.
+
+# .graphs {key: _LevelGraphs}, .seen {key}, .streams {device: Stream},
+# .held (bytes), .per_pair {spec: the most bytes a key of it took per pair}
+_local = threading.local()
+
+
+def release_graphs() -> None:
+    """Drop this thread's graphs of the level loop and their buffers; each
+    key's next use runs op by op again."""
+    _local.__dict__.clear()
+
+
+def held_graph_bytes() -> int:
+    """The device bytes this thread's graphs of the level loop hold, as read
+    at their captures."""
+    return getattr(_local, "held", 0)
+
+
+def _level_graphs(device: torch.device, bsz: int, spec: _LoopSpec, level: LevelData, k_full, cam_rts):
+    """This thread's graphs of (device, B, spec), captured at the key's
+    second use; None at its first use, which runs op by op and so warms the
+    allocator and cuBLAS, and for a new key that would take the thread's
+    graphs past photoicp.GRAPH_BYTES_PER_THREAD (its bytes foreseen from
+    the same spec at another B, per pair)."""
+    if not hasattr(_local, "graphs"):
+        _local.graphs, _local.seen, _local.streams, _local.held, _local.per_pair = {}, set(), {}, 0, {}
+    key = (device, bsz, spec)
+    graphs = _local.graphs.get(key)
+    if graphs is None and _local.held + _local.per_pair.get(spec, 0.0) * bsz <= photoicp.GRAPH_BYTES_PER_THREAD:
+        if key not in _local.seen:
+            _local.seen.add(key)
+            return None
+        if device not in _local.streams:
+            _local.streams[device] = torch.cuda.Stream(device)
+        graphs = _local.graphs[key] = _LevelGraphs(spec, level, k_full, cam_rts, _local.streams[device])
+        _local.held += graphs.nbytes
+        _local.per_pair[spec] = max(_local.per_pair.get(spec, 0.0), graphs.nbytes / bsz)
+    return graphs
+
+
+class _LevelGraphs:
+    """The three CUDA graphs of one key, the buffers they read and write,
+    and their replay (``run``). Made with no stream it captures nothing and
+    each replay runs its segment op by op, on any device: the same
+    buffers, segments, reads and counts, which the CPU tests hold to the
+    op-by-op loop."""
+
+    def __init__(self, spec: _LoopSpec, level: LevelData, k_full, cam_rts, stream=None):
+        dev = level.gray_src.device
+        like = lambda t: torch.empty(t.shape, dtype=t.dtype, device=dev)
+        self.spec = spec
+        # the level's inputs, copied in by each run
+        self.gray_src, self.depth_src = like(level.gray_src), like(level.depth_src)
+        self.planes = like(pack_target_planes8(level))  # (B, C, H, 8, W)
+        self.pose0 = torch.empty((level.gray_src.shape[0], 4, 4), dtype=torch.float32, device=dev)
+        self.k_full = like(k_full)
+        self.cam_rts = None if cam_rts is None else like(cam_rts)
+        buffers = [t for t in (self.gray_src, self.depth_src, self.planes, self.pose0, self.k_full, self.cam_rts)
+                   if t is not None]
+        segments = [self._first, self._body, self._retry]
+        if stream is None:
+            self.first, self.body, self.retry = (SimpleNamespace(replay=s) for s in segments)
+            self.nbytes = 0
+            return
+        reserved = torch.cuda.memory_reserved(dev)
+        pool = torch.cuda.graph_pool_handle()  # the key's graphs share it: they never run at once
+
+        def capture(segment):
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(stream):
+                g.capture_begin(pool=pool, capture_error_mode="thread_local")
+                try:
+                    segment()
+                finally:
+                    g.capture_end()
+            timing.count(GRAPHS, "captures")
+            return g
+
+        with photoicp._CAPTURE_LOCK, torch.cuda.device(dev):
+            self.first, self.body, self.retry = [capture(s) for s in segments]
+        # as photoicp._LevelGraphs: the reserved memory's growth and the buffers
+        self.nbytes = (max(torch.cuda.memory_reserved(dev) - reserved, 0)
+                       + sum(t.numel() * t.element_size() for t in buffers))
+
+    # the segments; what they leave on self is the graphs' own memory,
+    # rewritten by each replay
+    def _first(self):
+        planes = self.planes.reshape((-1,) + self.planes.shape[2:])
+        self.lv = _Level(self.spec, self.gray_src, self.depth_src, planes, self.k_full, self.cam_rts)
+        self.carry = self.lv.init(self.pose0).copy()
+        self.active = self.lv.active_of(self.carry)
+
+    def _body(self):
+        # the carry as it stood before the body, where a retry round starts
+        self.prev, self.prev_active = self.carry.copy(), self.active.clone()
+        self.ok, self.step, self.retry_mask, nxt = self.lv.body(self.prev, self.prev_active)
+        self._commit(nxt)
+        self.flags = _flags(self.retry_mask, self.active)
+
+    def _retry(self):
+        self._commit(self.lv.retry_round(self.prev, self.prev_active, self.ok, self.step, self.retry_mask))
+        self.any_active = self.active.any()
+
+    def _commit(self, nxt: _Carry) -> None:
+        for dst, src in zip(self.carry.flat(), nxt.flat()):
+            dst.copy_(src)
+        self.active.copy_(self.lv.active_of(self.carry))
+
+    def _replay(self, graph) -> None:
+        timing.count(SWEEPS, "sweeps")
+        graph.replay()
+        timing.count(GRAPHS, "replays")
+
+    def run(self, level: LevelData, k_full, pose0: torch.Tensor, cam_rts) -> _Carry:
+        """The level's loop from the graphs, for inputs of the key's shapes.
+        Returns the carry _loop_eager does, as a copy, which the next run
+        does not overwrite."""
+        self.gray_src.copy_(level.gray_src)
+        self.depth_src.copy_(level.depth_src)
+        pack_target_planes8(level, out=self.planes)
+        self.pose0.copy_(pose0)
+        self.k_full.copy_(k_full)
+        if cam_rts is not None:
+            self.cam_rts.copy_(cam_rts)
+        self._replay(self.first)
+        more = self.spec.max_iters > 0
+        while more:
+            timing.count(GN, "iterations")
+            with timing.span("rig iteration"):
+                self._replay(self.body)
+                n_retry, more = timing.host_sync(_read_flags, self.flags)
+                if n_retry:
+                    _count_retry_round(n_retry)
+                    self._replay(self.retry)
+                    more = timing.host_sync(bool, self.any_active)
+        return self.carry.copy()
+
+
+def _align_level(level: LevelData, k_full, lvl_idx: int, pose0, method: int, *, max_iters: int, tol_update: float,
+                 tol_residual: float, lm_lambda0: float, lm_step: float, cam_rts=None, occlusion: int = 0):
+    """One level of the shared GN + LM loop (photoicp_pinhole.py:271) for B
+    pairs of C cameras ((B, C, H, W) fields of ``level``), vmap-of-while as
+    the module's docstring says; on a CUDA device from the level's CUDA
+    graphs (_LevelGraphs), with the same arithmetic. Returns (pose, state,
+    iterations, ill_posed), each leading with B."""
+    bsz, ncam = level.gray_src.shape[:2]
+    h, w = shape = tuple(level.gray_src.shape[-2:])
+    dev = pose0.device
+    dtypes = tuple(t.dtype for t in (*level, k_full)) + (None if cam_rts is None else cam_rts.dtype,)
+    spec = _LoopSpec(shape, ncam, lvl_idx, method, occlusion, max_iters, tol_update, tol_residual, lm_lambda0,
+                     lm_step, dtypes)
+    graphs = _level_graphs(dev, bsz, spec, level, k_full, cam_rts) if photoicp._use_cuda_graphs(dev) else None
+    if graphs is None:
+        planes = pack_target_planes8(level).reshape(bsz * ncam, h, 8, w)
+        c = _loop_eager(_Level(spec, level.gray_src, level.depth_src, planes, k_full, cam_rts), pose0)
+    else:
+        c = graphs.run(level, k_full, pose0, cam_rts)
     return c.pose, c.state, c.it, c.ill
 
 

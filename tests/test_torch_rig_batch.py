@@ -234,6 +234,20 @@ def test_the_facade_registers_through_the_batched_loop(batch, monkeypatch):
     assert np.abs(got[:3, 3] - step[:3, 3]).max() < 1e-2
 
 
+def _room_captures(dev, n):
+    """(gray, depth metres), each (8, 240, 320) on ``dev``, of the rig at
+    the first ``n`` poses of the room's circle (6 deg, ~8.4 cm a step)."""
+    caps = []
+    for p in rig.circle_poses(n, 6.0, 0.8):
+        gray, depth = [], []
+        for s in range(8):
+            rgb, d = rig.raycast_room_sensor(p @ RTS[s], obstacles=rig.OBSTACLES)
+            gray.append(ref_image.gray_f32(torch.from_numpy(rgb)))
+            depth.append(torch.from_numpy(d).to(torch.float32) * 0.001)
+        caps.append((torch.stack(gray).to(dev), torch.stack(depth).to(dev)))
+    return caps
+
+
 @pytest.mark.cuda
 def test_on_the_card_a_batch_equals_its_pairs_and_the_reference():
     """At the deployment's size (8 x 240 x 320, 4 levels) on the card: four
@@ -245,15 +259,7 @@ def test_on_the_card_a_batch_equals_its_pairs_and_the_reference():
     dev = torch.device("cuda")
     rts = RTS.astype(np.float32)
     k = rig.qvga_camera_matrix()
-    poses = rig.circle_poses(5, 6.0, 0.8)
-    caps = []
-    for p in poses:
-        gray, depth = [], []
-        for s in range(8):
-            rgb, d = rig.raycast_room_sensor(p @ RTS[s], obstacles=rig.OBSTACLES)
-            gray.append(ref_image.gray_f32(torch.from_numpy(rgb)))
-            depth.append(torch.from_numpy(d).to(torch.float32) * 0.001)
-        caps.append((torch.stack(gray).to(dev), torch.stack(depth).to(dev)))
+    caps = _room_captures(dev, 5)
     stack = lambda frames, part: torch.stack([caps[f][part] for f in frames])
     src, trg = [1, 2, 3, 4], [0, 1, 2, 3]
     args = lambda b: (stack([src[i] for i in b], 0), stack([src[i] for i in b], 1), stack([trg[i] for i in b], 0),
@@ -269,3 +275,56 @@ def test_on_the_card_a_batch_equals_its_pairs_and_the_reference():
     assert together.num_iterations[0].tolist() == ref["iters"].tolist()
     # 6 deg about the vertical and ~8.4 cm per step
     assert 0.07 < float(torch.linalg.vector_norm(together.pose[0, :3, 3])) < 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [8, 1])
+def test_on_the_card_the_graph_path_equals_the_eager_path(monkeypatch, b):
+    """At the deployment's size (8 x 240 x 320, 4 levels) on the card: aligns
+    of the same shapes on inputs A, A, B, A replay the level loop from CUDA
+    graphs from the second on (the first runs op by op, the second captures
+    three graphs a level), and each equals the op-by-op loop, forced by the
+    routing predicate, in every PinholeAlignResult field, bit for bit, and
+    in its counts: sweeps, retry rounds, iterations, syncs, pairs retried.
+    B (the pairs swapped) would show a stale buffer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rgbd360_torch.ops import photoicp
+
+    dev = torch.device("cuda")
+    caps = _room_captures(dev, b + 1)
+    rts, k = torch.from_numpy(RTS.astype(np.float32)).to(dev), torch.from_numpy(rig.qvga_camera_matrix()).to(dev)
+    stack = lambda frames, part: torch.stack([caps[f][part] for f in frames])
+    args = lambda src, trg: (stack(src, 0), stack(src, 1), stack(trg, 0), stack(trg, 1), rts, k,
+                             torch.eye(4, device=dev).expand(b, 4, 4))
+    inputs = {"A": args(range(1, b + 1), range(b)), "B": args(range(b), range(1, b + 1))}
+
+    def align(name):
+        pp.reset_sweep_counts()
+        res = align_batch_rig(*inputs[name])
+        torch.cuda.synchronize()
+        gn = {key: v for key, v in pp.GN.items() if key not in ("host_ns", "wait_ns")}
+        return res, gn, dict(pp.SWEEPS), dict(pp.GRAPHS)
+
+    monkeypatch.setattr(photoicp, "_use_cuda_graphs", lambda device: False)
+    eager = {name: align(name) for name in inputs}
+    monkeypatch.undo()
+    pp.release_graphs()
+    for n, name in enumerate("AABA"):
+        res, gn, sweeps, graphs = align(name)
+        want, want_gn, want_sweeps, want_graphs = eager[name]
+        for field, a, o in zip(pp.PinholeAlignResult._fields, res, want):
+            bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+            assert torch.equal(bits(a), bits(o)), (n, name, field)
+        assert gn == want_gn and sweeps == want_sweeps, (n, name)
+        assert gn["iterations"] > 0 and want_graphs["eager_bodies"] == gn["iterations"]
+        if n == 0:  # the shapes' first use
+            assert graphs == {"captures": 0, "replays": 0, "eager_bodies": gn["iterations"]}
+        else:  # 4 levels of 3 graphs; a replay per first sweep, body and retry round
+            assert graphs == {"captures": 12 if n == 1 else 0, "eager_bodies": 0,
+                              "replays": 4 + gn["iterations"] + sweeps["lm_retries"]}
+    held = pp.held_graph_bytes()
+    print(f"batch {b}: the level loop's graphs hold {held} B; sweeps {sweeps}, GN {gn}")
+    assert 0 < held <= photoicp.GRAPH_BYTES_PER_THREAD
+    pp.release_graphs()
+    assert pp.held_graph_bytes() == 0
