@@ -35,12 +35,14 @@ loop runs while any pair is active. Each iteration reads the batch's flags
 once: how many pairs take the Levenberg-Marquardt retry (an active,
 well-posed pair whose first step raised its error) and whether any pair
 stays active. A retry round costs one more batched sweep and one more read.
-On a CUDA device each level's first sweep, loop body and retry round
-replay from CUDA graphs (_LevelGraphs), bit for bit the kernels of the
-op-by-op loop, which the CPU runs; the reads stay as they are.
+Each level's first sweep, loop body and retry round are segments
+(_LevelLoop): on a CUDA device they replay from CUDA graphs, elsewhere they
+run uncaptured, the same kernels bit for bit (ops/level_graphs.py); the
+reads are the same on both routes.
 No pair's arithmetic depends on another's: every product and reduction has
-the same shape whatever B (``_matmul_unrolled``, ``_rig_grams``), so a
-pair aligned in a batch equals the pair aligned alone.
+the same shape whatever B (``_matmul_unrolled``, ``_pair_grams`` and the
+per-pair sum over the cameras), so a pair aligned in a batch equals the
+pair aligned alone.
 
 Not ported (ROADMAP's do-not-port list): ``pack_target_channels`` /
 ``_gather_rows`` and the f16 gradient packing (photoicp_pinhole.py:151-155).
@@ -55,14 +57,12 @@ the tensors' device: the JAX package has no Pallas kernel on this path.
 from __future__ import annotations
 
 import math
-import threading
 import time
-from types import SimpleNamespace
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from rgbd360_torch.ops import linalg6, photoicp, se3
+from rgbd360_torch.ops import level_graphs, linalg6, se3
 from rgbd360_torch.ops.image import round_half_away
 from rgbd360_torch.ops.photoicp import (
     DEPTH_CONSISTENCY,
@@ -77,6 +77,7 @@ from rgbd360_torch.ops.photoicp import (
     _exact_gather,
     _huber_weight,
     _matmul_unrolled,
+    _pair_grams,
     _select,
     build_pyramid_set,
     make_level_data,
@@ -101,7 +102,7 @@ GN = timing.counter_group("photoicp_pinhole.GN",
 
 # The level loop's CUDA graphs, in the same reset: "captures" the graphs
 # captured (three a key), "replays" the first sweeps, loop bodies and retry
-# rounds replayed from them, "eager_bodies" the loop bodies run op by op
+# rounds replayed from them, "eager_bodies" the loop bodies run uncaptured
 # (every body off a CUDA device; a key's first use; a key beyond the byte
 # bound). Replayed bodies are GN's iterations less eager_bodies.
 GRAPHS = timing.counter_group("photoicp_pinhole.GRAPHS", {"captures": 0, "replays": 0, "eager_bodies": 0})
@@ -134,23 +135,6 @@ def pinhole_lut(depth: torch.Tensor, k_full: torch.Tensor, level: int):
     xyz = torch.stack([x, y, z], dim=-1).reshape(lead + (h * w, 3))
     valid = valid.reshape(lead + (h * w,))
     return torch.where(valid[..., None], xyz, torch.zeros_like(xyz)), valid
-
-
-def _rig_grams(rows: torch.Tensor, shape) -> torch.Tensor:
-    """sum_i a_i a_i^T over each pair's pixels and cameras: (B, C, T, N, K)
-    per-pixel rows of T terms -> (B, T, K, K).
-
-    As photoicp._pair_grams: one (K, W) x (W, K) product per image row,
-    then a sum over the rows and then over the cameras, each pair reduced
-    on its own by ops whose shapes do not depend on B (a batched reduction's
-    summation order does)."""
-    h, w = shape
-    c, t, k = rows.shape[1], rows.shape[2], rows.shape[-1]
-    grams = []
-    for a in rows:
-        ar = a.reshape(c * t * h, w, k)
-        grams.append((ar.transpose(-1, -2) @ ar).reshape(c, t, h, k, k).sum(dim=2).sum(dim=0))
-    return torch.stack(grams)
 
 
 def _sweep(
@@ -255,8 +239,8 @@ def _sweep(
     else:
         hg_ok = visible
 
-    # per term, the rows [J | r gated as H and g | r] reduced by _rig_grams:
-    # H, g and the error's sum of squares from one product
+    # per camera and term, the rows [J | r gated as H and g | r] reduced by
+    # _pair_grams: H, g and the error's sum of squares from one product
     terms = ["photo"] if method in (PHOTO_CONSISTENCY, PHOTO_DEPTH) else []
     if method in (DEPTH_CONSISTENCY, PHOTO_DEPTH):
         terms.append("depth")
@@ -282,7 +266,9 @@ def _sweep(
         torch.where(ok_hg, res, torch.zeros((), device=res.device), out=rows[:, :, k, :, 6])
         rows[:, :, k, :, 7] = res
         counts[name] = ok.sum(dim=(1, 2), dtype=torch.int32)
-    grams = _rig_grams(rows, shape)
+    grams = _pair_grams(rows.reshape(bsz, ncam * len(terms), h * w, 8), shape)
+    # then each pair's sum over its cameras, a pair at a time (B-free shapes)
+    grams = torch.stack([gp.reshape(ncam, len(terms), 8, 8).sum(dim=0) for gp in grams])
 
     zero_f = torch.zeros((bsz,), dtype=torch.float32, device=xyz.device)
     zero_i = torch.zeros((bsz,), dtype=torch.int32, device=xyz.device)
@@ -402,27 +388,39 @@ def _read_flags(flags: torch.Tensor):
     return n_retry, n_active > 0
 
 
-class _Level:
-    """One level's loop arithmetic for B pairs of C cameras: the sweep at a
-    pose and the parts of a loop body. The op-by-op loop and the CUDA
-    graphs' segments both run it, so both issue the same kernels. It counts
-    nothing: a count inside a captured segment would fire once, at the
-    capture, so the loops count on the host."""
+class _LevelLoop:
+    """One level's loop for B pairs of C cameras: the arithmetic (the sweep
+    at a pose, the carry's init, step, accept and retry), the loop's three
+    segments and ``run``, which runs them captured or not
+    (ops/level_graphs.py):
+      first sweep:  the backprojection LUT, the sweep at pose0, the carry
+      loop body:    a copy of the carry, the first step and its sweep, accept,
+                    the flags (pairs to retry, pairs active)
+      retry round:  the second step from the copy, the per-pair select,
+                    accept, any pair active
+    The carry lives in the key's buffers and is updated in place; the host
+    reads the flags once per body and once more per retry round."""
 
-    def __init__(self, spec: _LoopSpec, gray_src, depth_src, planes, k_full, cam_rts):
-        bsz = gray_src.shape[0]
-        dev = gray_src.device
-        self.spec = spec
-        self.xyz, self.valid = pinhole_lut(depth_src, k_full, spec.level)
-        self.gray_src_flat = gray_src.reshape(bsz, spec.ncam, -1)
-        self.planes = planes  # (B*C, H, 8, W)
-        self.k_full, self.cam_rts = k_full, cam_rts
-        self.eye6 = torch.eye(6, dtype=torch.float32, device=dev)
-        self.lam0 = torch.full((bsz,), spec.lm_lambda0, dtype=torch.float32, device=dev)
+    def __init__(self, spec: _LoopSpec, level: LevelData, k_full, cam_rts, segments: level_graphs.Segments):
+        dev = level.gray_src.device
+        like = lambda t: torch.empty(t.shape, dtype=t.dtype, device=dev)
+        h, w = spec.shape
+        self.spec, self.segments = spec, segments
+        # the level's inputs, copied in by each run
+        self.gray_src, self.depth_src = like(level.gray_src), like(level.depth_src)
+        self.planes = torch.empty(level.gray_trg.shape[:-2] + (h, 8, w), dtype=level.gray_trg.dtype, device=dev)
+        self.pose0 = torch.empty((level.gray_src.shape[0], 4, 4), dtype=torch.float32, device=dev)
+        self.k_full = like(k_full)
+        self.cam_rts = None if cam_rts is None else like(cam_rts)
+        buffers = [t for t in (self.gray_src, self.depth_src, self.planes, self.pose0, self.k_full, self.cam_rts)
+                   if t is not None]
+        # 0: the first sweep, 1: the loop body, 2: the retry round
+        segments.record(self, [[_LevelLoop._first], [_LevelLoop._body], [_LevelLoop._retry]], buffers)
 
+    # the arithmetic
     def sweep(self, pose):
         s = self.spec
-        return _sweep(self.gray_src_flat, self.planes, s.shape, self.xyz, self.valid, pose, self.k_full, s.level,
+        return _sweep(self.gray_src_flat, self.planes_flat, s.shape, self.xyz, self.valid, pose, self.k_full, s.level,
                       s.method, self.cam_rts, s.occlusion)
 
     def error_of(self, state):
@@ -471,7 +469,7 @@ class _Level:
             c.ill | (active & ~ok),
         )
 
-    def body(self, c: _Carry, active):
+    def first_step(self, c: _Carry, active):
         """A loop body's first step: (ok, the step, the pairs to retry, the
         carry after the step). The main solve is plain Gauss-Newton for one
         camera (reference RegisterPhotoICP.h:4693) and lambda-damped for
@@ -481,7 +479,7 @@ class _Level:
         retry = active & ok & (first.dstep <= 0)
         return ok, first, retry, self.accept(c, active, ok, first)
 
-    def retry_round(self, c: _Carry, active, ok, first: _Step, retry) -> _Carry:
+    def retry_step(self, c: _Carry, active, ok, first: _Step, retry) -> _Carry:
         """The carry after the body when the pairs ``retry`` retry their
         rejected first step at raised damping (photoicp_pinhole.py:315-350),
         from the carry ``c`` as it stood before the body."""
@@ -493,170 +491,44 @@ class _Level:
         )
         return self.accept(c, active, ok, step)
 
-
-def _count_retry_round(n_retry: int) -> None:
-    timing.count(SWEEPS, "lm_retries")
-    timing.count(GN, "pair_retries", n_retry)
-
-
-def _loop_eager(lv: _Level, pose0: torch.Tensor) -> _Carry:
-    """The level's loop op by op."""
-    timing.count(SWEEPS, "sweeps")
-    c = lv.init(pose0)
-    # every pair with a finite error starts active; a body in which none is
-    # active changes nothing, so the first loop test is not read
-    active = lv.active_of(c)
-    more = lv.spec.max_iters > 0
-    while more:
-        timing.count(GN, "iterations")
-        timing.count(GRAPHS, "eager_bodies")
-        with timing.span("rig iteration"):
-            timing.count(SWEEPS, "sweeps")
-            ok, first, retry, nxt = lv.body(c, active)
-            n_retry, more = timing.host_sync(_read_flags, _flags(retry, lv.active_of(nxt)))
-            if n_retry:
-                timing.count(SWEEPS, "sweeps")
-                _count_retry_round(n_retry)
-                nxt = lv.retry_round(c, active, ok, first, retry)
-                more = timing.host_sync(bool, lv.active_of(nxt).any())
-            c = nxt
-            active = lv.active_of(c)
-    return c
-
-
-# -- the loop from CUDA graphs ---------------------------------------------------
-#
-# On a CUDA device the loop is host issue: some 1,070 small kernels a body
-# and 800 more a retry round, each a few microseconds on the card. So each
-# level replays its work from three CUDA graphs:
-#   first sweep:  the backprojection LUT, the sweep at pose0, the carry
-#   loop body:    a copy of the carry, the first step and its sweep, accept,
-#                 the flags (pairs to retry, pairs active)
-#   retry round:  the second step from the copy, the per-pair select,
-#                 accept, any pair active
-# The carry lives in the key's buffers and is updated in place; the host
-# reads the flags once per body and once more per retry round, as op by op.
-# A graph runs the kernels of the op-by-op loop on the same shapes, so the
-# result is bit for bit the op-by-op one. The capture rules, lock and byte
-# bound are the spherical loop's (ops/photoicp.py): a key is captured at
-# its second use, per thread, within photoicp.GRAPH_BYTES_PER_THREAD.
-
-# .graphs {key: _LevelGraphs}, .seen {key}, .streams {device: Stream},
-# .held (bytes), .per_pair {spec: the most bytes a key of it took per pair}
-_local = threading.local()
-
-
-def release_graphs() -> None:
-    """Drop this thread's graphs of the level loop and their buffers; each
-    key's next use runs op by op again."""
-    _local.__dict__.clear()
-
-
-def held_graph_bytes() -> int:
-    """The device bytes this thread's graphs of the level loop hold, as read
-    at their captures."""
-    return getattr(_local, "held", 0)
-
-
-def _level_graphs(device: torch.device, bsz: int, spec: _LoopSpec, level: LevelData, k_full, cam_rts):
-    """This thread's graphs of (device, B, spec), captured at the key's
-    second use; None at its first use, which runs op by op and so warms the
-    allocator and cuBLAS, and for a new key that would take the thread's
-    graphs past photoicp.GRAPH_BYTES_PER_THREAD (its bytes foreseen from
-    the same spec at another B, per pair)."""
-    if not hasattr(_local, "graphs"):
-        _local.graphs, _local.seen, _local.streams, _local.held, _local.per_pair = {}, set(), {}, 0, {}
-    key = (device, bsz, spec)
-    graphs = _local.graphs.get(key)
-    if graphs is None and _local.held + _local.per_pair.get(spec, 0.0) * bsz <= photoicp.GRAPH_BYTES_PER_THREAD:
-        if key not in _local.seen:
-            _local.seen.add(key)
-            return None
-        if device not in _local.streams:
-            _local.streams[device] = torch.cuda.Stream(device)
-        graphs = _local.graphs[key] = _LevelGraphs(spec, level, k_full, cam_rts, _local.streams[device])
-        _local.held += graphs.nbytes
-        _local.per_pair[spec] = max(_local.per_pair.get(spec, 0.0), graphs.nbytes / bsz)
-    return graphs
-
-
-class _LevelGraphs:
-    """The three CUDA graphs of one key, the buffers they read and write,
-    and their replay (``run``). Made with no stream it captures nothing and
-    each replay runs its segment op by op, on any device: the same
-    buffers, segments, reads and counts, which the CPU tests hold to the
-    op-by-op loop."""
-
-    def __init__(self, spec: _LoopSpec, level: LevelData, k_full, cam_rts, stream=None):
-        dev = level.gray_src.device
-        like = lambda t: torch.empty(t.shape, dtype=t.dtype, device=dev)
-        self.spec = spec
-        # the level's inputs, copied in by each run
-        self.gray_src, self.depth_src = like(level.gray_src), like(level.depth_src)
-        self.planes = like(pack_target_planes8(level))  # (B, C, H, 8, W)
-        self.pose0 = torch.empty((level.gray_src.shape[0], 4, 4), dtype=torch.float32, device=dev)
-        self.k_full = like(k_full)
-        self.cam_rts = None if cam_rts is None else like(cam_rts)
-        buffers = [t for t in (self.gray_src, self.depth_src, self.planes, self.pose0, self.k_full, self.cam_rts)
-                   if t is not None]
-        segments = [self._first, self._body, self._retry]
-        if stream is None:
-            self.first, self.body, self.retry = (SimpleNamespace(replay=s) for s in segments)
-            self.nbytes = 0
-            return
-        reserved = torch.cuda.memory_reserved(dev)
-        pool = torch.cuda.graph_pool_handle()  # the key's graphs share it: they never run at once
-
-        def capture(segment):
-            g = torch.cuda.CUDAGraph()
-            with torch.cuda.stream(stream):
-                g.capture_begin(pool=pool, capture_error_mode="thread_local")
-                try:
-                    segment()
-                finally:
-                    g.capture_end()
-            timing.count(GRAPHS, "captures")
-            return g
-
-        with photoicp._CAPTURE_LOCK, torch.cuda.device(dev):
-            self.first, self.body, self.retry = [capture(s) for s in segments]
-        # as photoicp._LevelGraphs: the reserved memory's growth and the buffers
-        self.nbytes = (max(torch.cuda.memory_reserved(dev) - reserved, 0)
-                       + sum(t.numel() * t.element_size() for t in buffers))
-
-    # the segments; what they leave on self is the graphs' own memory,
-    # rewritten by each replay
+    # the segments; what they leave on self is, captured, the graphs' own
+    # memory, rewritten by each replay. They count nothing: run() counts on
+    # the host.
     def _first(self):
-        planes = self.planes.reshape((-1,) + self.planes.shape[2:])
-        self.lv = _Level(self.spec, self.gray_src, self.depth_src, planes, self.k_full, self.cam_rts)
-        self.carry = self.lv.init(self.pose0).copy()
-        self.active = self.lv.active_of(self.carry)
+        s = self.spec
+        bsz, dev = self.pose0.shape[0], self.pose0.device
+        self.xyz, self.valid = pinhole_lut(self.depth_src, self.k_full, s.level)
+        self.gray_src_flat = self.gray_src.reshape(bsz, s.ncam, -1)
+        self.planes_flat = self.planes.reshape((-1,) + self.planes.shape[2:])  # (B*C, H, 8, W)
+        self.eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+        self.lam0 = torch.full((bsz,), s.lm_lambda0, dtype=torch.float32, device=dev)
+        self.carry = self.init(self.pose0).copy()
+        self.active = self.active_of(self.carry)
 
     def _body(self):
         # the carry as it stood before the body, where a retry round starts
         self.prev, self.prev_active = self.carry.copy(), self.active.clone()
-        self.ok, self.step, self.retry_mask, nxt = self.lv.body(self.prev, self.prev_active)
+        self.ok, self.step, self.retry_mask, nxt = self.first_step(self.prev, self.prev_active)
         self._commit(nxt)
         self.flags = _flags(self.retry_mask, self.active)
 
     def _retry(self):
-        self._commit(self.lv.retry_round(self.prev, self.prev_active, self.ok, self.step, self.retry_mask))
+        self._commit(self.retry_step(self.prev, self.prev_active, self.ok, self.step, self.retry_mask))
         self.any_active = self.active.any()
 
     def _commit(self, nxt: _Carry) -> None:
         for dst, src in zip(self.carry.flat(), nxt.flat()):
             dst.copy_(src)
-        self.active.copy_(self.lv.active_of(self.carry))
+        self.active.copy_(self.active_of(self.carry))
 
-    def _replay(self, graph) -> None:
+    def _replay(self, k: int) -> None:
         timing.count(SWEEPS, "sweeps")
-        graph.replay()
-        timing.count(GRAPHS, "replays")
+        self.segments.replay(k, self)
+        self.segments.count(body=k == 1)
 
     def run(self, level: LevelData, k_full, pose0: torch.Tensor, cam_rts) -> _Carry:
-        """The level's loop from the graphs, for inputs of the key's shapes.
-        Returns the carry _loop_eager does, as a copy, which the next run
-        does not overwrite."""
+        """The level's loop for inputs of the key's shapes. Returns the carry
+        as a copy, which the next run does not overwrite."""
         self.gray_src.copy_(level.gray_src)
         self.depth_src.copy_(level.depth_src)
         pack_target_planes8(level, out=self.planes)
@@ -664,39 +536,43 @@ class _LevelGraphs:
         self.k_full.copy_(k_full)
         if cam_rts is not None:
             self.cam_rts.copy_(cam_rts)
-        self._replay(self.first)
+        self._replay(0)
+        # every pair with a finite error starts active; a body in which none
+        # is active changes nothing, so the first loop test is not read
         more = self.spec.max_iters > 0
         while more:
             timing.count(GN, "iterations")
             with timing.span("rig iteration"):
-                self._replay(self.body)
+                self._replay(1)
                 n_retry, more = timing.host_sync(_read_flags, self.flags)
                 if n_retry:
-                    _count_retry_round(n_retry)
-                    self._replay(self.retry)
+                    timing.count(SWEEPS, "lm_retries")
+                    timing.count(GN, "pair_retries", n_retry)
+                    self._replay(2)
                     more = timing.host_sync(bool, self.any_active)
         return self.carry.copy()
+
+
+# The robot-frame loop's graphs, one byte bound a thread of its own
+# (ops/level_graphs.py).
+GRAPH_CACHE = level_graphs.GraphCache(GRAPHS)
 
 
 def _align_level(level: LevelData, k_full, lvl_idx: int, pose0, method: int, *, max_iters: int, tol_update: float,
                  tol_residual: float, lm_lambda0: float, lm_step: float, cam_rts=None, occlusion: int = 0):
     """One level of the shared GN + LM loop (photoicp_pinhole.py:271) for B
     pairs of C cameras ((B, C, H, W) fields of ``level``), vmap-of-while as
-    the module's docstring says; on a CUDA device from the level's CUDA
-    graphs (_LevelGraphs), with the same arithmetic. Returns (pose, state,
-    iterations, ill_posed), each leading with B."""
+    the module's docstring says, through this thread's _LevelLoop of the key
+    (GRAPH_CACHE). Returns (pose, state, iterations, ill_posed), each
+    leading with B."""
     bsz, ncam = level.gray_src.shape[:2]
-    h, w = shape = tuple(level.gray_src.shape[-2:])
-    dev = pose0.device
+    shape = tuple(level.gray_src.shape[-2:])
     dtypes = tuple(t.dtype for t in (*level, k_full)) + (None if cam_rts is None else cam_rts.dtype,)
     spec = _LoopSpec(shape, ncam, lvl_idx, method, occlusion, max_iters, tol_update, tol_residual, lm_lambda0,
                      lm_step, dtypes)
-    graphs = _level_graphs(dev, bsz, spec, level, k_full, cam_rts) if photoicp._use_cuda_graphs(dev) else None
-    if graphs is None:
-        planes = pack_target_planes8(level).reshape(bsz * ncam, h, 8, w)
-        c = _loop_eager(_Level(spec, level.gray_src, level.depth_src, planes, k_full, cam_rts), pose0)
-    else:
-        c = graphs.run(level, k_full, pose0, cam_rts)
+    loop = GRAPH_CACHE.loop(pose0.device, bsz, spec,
+                            lambda segments: _LevelLoop(spec, level, k_full, cam_rts, segments))
+    c = loop.run(level, k_full, pose0, cam_rts)
     return c.pose, c.state, c.it, c.ill
 
 

@@ -22,7 +22,7 @@ level, which runs the gather's plain version (as the JAX dry run forces the
 route and runs the Pallas kernel in interpret mode).
 
 Each align leg must be bit-equal to ``align_batch`` over the whole batch on
-the same device (on a card both op by op and from CUDA graphs), iteration
+the same device (on a card both uncaptured and from CUDA graphs), iteration
 counts included (the JAX dry run holds its legs within 1e-5); the
 prefilter must equal ``batch_match.prefilter_candidates``.
 """
@@ -95,9 +95,9 @@ def _align_leg(mesh, dev, shape, n_levels, full_coverage, leg):
     """Sharded and unsplit align of the leg's batch, each twice; returns
     (the first split result, its kernel launches, its sweeps), both counted
     across the shards' threads. On a card a thread's second call of the
-    shapes replays the aligner's CUDA graphs (ops/photoicp.py; the shard
-    threads outlive the call), the first runs op by op unless an earlier
-    call of the thread met them."""
+    shapes replays the aligner's CUDA graphs (ops/level_graphs.py; the
+    shard threads outlive the call), the first runs them uncaptured unless
+    an earlier call of the thread met them."""
     batch = PAIRS_PER_DEVICE * len(mesh)
     gray, depth = synthetic_pair(*shape, batch)
     gray, depth, seeds = gray.to(dev), depth.to(dev), yawed_seeds(batch).to(dev)

@@ -13,7 +13,7 @@ of its own, on a stream of its own, because every Gauss-Newton iteration
 syncs with the host once (the loop condition): one thread per shard lets
 the shards' device work overlap those syncs. The shard threads live as
 long as the process (one per shard index and device), so the aligner's
-CUDA graphs, which a thread keeps for itself (ops/photoicp.py), are
+CUDA graphs, which a thread keeps for itself (ops/level_graphs.py), are
 replayed by the next call of the same shapes. Each pair is reduced on its
 own (ops/photoicp.py::_pair_grams), so a split result is bit-equal to the
 unsplit call on the same device type.

@@ -389,7 +389,7 @@ def test_every_host_sync_of_the_aligner_is_counted(cuda, full_coverage):
         np.stack([golden[key].astype(np.float32) * scale] * 8)).to(cuda)
     args = (img("gray_src_u8", 1 / 255.0), img("depth_src_mm", 0.001), img("gray_trg_u8", 1 / 255.0),
             img("depth_trg_mm", 0.001), torch.eye(4, device=cuda).expand(8, 4, 4).contiguous())
-    photoicp.release_graphs()
+    photoicp.GRAPH_CACHE.release()
     align_batch(*args, full_coverage=full_coverage)  # warm: the kernel's build, the allocator
     torch.cuda.synchronize()
     where = []
@@ -449,12 +449,13 @@ def _golden_args(cuda, b, swapped=False):
 def test_graph_path_is_bit_equal_to_the_eager_path(cuda, monkeypatch, b, full_coverage, occlusion):
     """The golden pair at 1920 x 320, 5 levels (L0-L2 windowed, L3-L4
     exact): aligns of the same shapes on inputs A, A, B, A replay the
-    loop's CUDA graphs from the second on (the first runs op by op, the
-    second captures), and each equals the eager path forced by the routing
-    predicate in every AlignResult field, bit for bit, and in its SWEEPS
-    and LAUNCHES; B, on other inputs, would show a stale buffer. Every
-    windowed sweep launches the kernel once."""
-    from rgbd360_torch.ops import photoicp
+    loop's CUDA graphs from the second on (the first runs uncaptured, the
+    second captures), and each equals the same align run uncaptured,
+    forced by the shared predicate (level_graphs.use_cuda_graphs), in every
+    AlignResult field, bit for bit, and in its SWEEPS and LAUNCHES; B, on
+    other inputs, would show a stale buffer. Every windowed sweep launches
+    the kernel once."""
+    from rgbd360_torch.ops import level_graphs, photoicp
     from rgbd360_torch.parallel.dryrun import assert_same_result
 
     inputs = {"A": _golden_args(cuda, b), "B": _golden_args(cuda, b, swapped=True)}
@@ -466,13 +467,13 @@ def test_graph_path_is_bit_equal_to_the_eager_path(cuda, monkeypatch, b, full_co
         torch.cuda.synchronize()
         return res, dict(photoicp.SWEEPS), dict(tw.LAUNCHES), dict(photoicp.GRAPHS), dict(photoicp.GN)
 
-    monkeypatch.setattr(photoicp, "_use_cuda_graphs", lambda device: False)
-    eager = {name: align(name) for name in inputs}
+    monkeypatch.setattr(level_graphs, "use_cuda_graphs", lambda device: False)
+    uncaptured = {name: align(name) for name in inputs}
     monkeypatch.undo()
-    photoicp.release_graphs()
+    photoicp.GRAPH_CACHE.release()
     for k, name in enumerate("AABA"):
         res, sweeps, launches, graphs, gn = align(name)
-        want, want_sweeps, want_launches, want_graphs, _gn = eager[name]
+        want, want_sweeps, want_launches, want_graphs, _gn = uncaptured[name]
         assert_same_result(res, want, f"call {k} ({name})")
         assert sweeps == want_sweeps and launches == want_launches
         assert launches["warp_gather_batched"] == sweeps["windowed"]
@@ -488,19 +489,19 @@ def test_graph_path_is_bit_equal_to_the_eager_path(cuda, monkeypatch, b, full_co
 @pytest.mark.cuda
 def test_threads_replay_graphs_of_their_own(cuda, monkeypatch):
     """Two threads, each on a stream of its own, align the same shapes
-    three times at once (op by op, capture, replay) on different inputs,
+    three times at once (uncaptured, capture, replay) on different inputs,
     while a third makes device work and waits for it, as the SLAM app's
     planes worker does: every result bit-equal to the same align run alone
-    op by op."""
+    uncaptured."""
     import threading
 
-    from rgbd360_torch.ops import photoicp
+    from rgbd360_torch.ops import level_graphs, photoicp
     from rgbd360_torch.parallel import dryrun
     from rgbd360_torch.parallel.batch import align_batch
 
     gray, depth = (x.to(cuda) for x in dryrun.synthetic_pair(160, 960, 4))
     seeds = [dryrun.yawed_seeds(4).to(cuda), dryrun.yawed_seeds(4).transpose(-1, -2).contiguous().to(cuda)]
-    monkeypatch.setattr(photoicp, "_use_cuda_graphs", lambda device: False)
+    monkeypatch.setattr(level_graphs, "use_cuda_graphs", lambda device: False)
     want = [align_batch(gray, depth, gray, depth, s, n_levels=2) for s in seeds]
     monkeypatch.undo()
     got, errors, stop = [[], []], [], threading.Event()
@@ -563,34 +564,36 @@ def test_frame_timing_sync_beside_a_capture(cuda, monkeypatch):
     aligner's CUDA graphs, and CUDA refuses a device-wide sync during a
     capture (the capture is lost and both threads raise). Here a capture
     is held open until another thread has made device work and run the
-    bracket's sync; the align still equals the eager one, bit for bit."""
+    bracket's sync; the align still equals the uncaptured one, bit for
+    bit."""
     import threading
     import types
 
     from rgbd360_torch.core.frame360 import Frame360
-    from rgbd360_torch.ops import photoicp
+    from rgbd360_torch.ops import level_graphs, photoicp
     from rgbd360_torch.parallel import dryrun
     from rgbd360_torch.parallel.batch import align_batch
 
     gray, depth = (x.to(cuda) for x in dryrun.synthetic_pair(160, 960, 2))
     seeds = dryrun.yawed_seeds(2).to(cuda)
-    monkeypatch.setattr(photoicp, "_use_cuda_graphs", lambda device: False)
+    monkeypatch.setattr(level_graphs, "use_cuda_graphs", lambda device: False)
     want = align_batch(gray, depth, gray, depth, seeds, n_levels=2)
     monkeypatch.undo()
     capturing, synced, errors, got, syncs = threading.Event(), threading.Event(), [], [], []
-    first_project = photoicp._LevelGraphs._first_project
+    first_project = photoicp._LevelLoop._first_project
 
-    def held_open(self):  # runs while the first sweep's graph is captured
+    def held_open(self):  # holds the first sweep's capture open; uncaptured runs pass
         first_project(self)
-        capturing.set()
-        synced.wait(timeout=120)
+        if torch.cuda.is_current_stream_capturing():
+            capturing.set()
+            synced.wait(timeout=120)
 
-    monkeypatch.setattr(photoicp._LevelGraphs, "_first_project", held_open)
+    monkeypatch.setattr(photoicp._LevelLoop, "_first_project", held_open)
 
     def aligner():
         try:
             with torch.cuda.stream(torch.cuda.Stream(cuda)):
-                for _ in range(2):  # op by op, then captured and replayed
+                for _ in range(2):  # uncaptured, then captured and replayed
                     got.append(align_batch(gray, depth, gray, depth, seeds, n_levels=2))
                 torch.cuda.current_stream().synchronize()
         except BaseException as exc:
@@ -631,10 +634,10 @@ def test_graph_cache_stops_capturing_at_its_byte_bound(cuda, monkeypatch):
     """A thread captures a new key only if its graphs stay within
     GRAPH_BYTES_PER_THREAD with it: with a bound of one byte the second
     align captures the first level it meets (nothing foreseen yet) and runs
-    the other op by op; a key of a larger batch of a level already held is
+    the other uncaptured; a key of a larger batch of a level already held is
     foreseen from it and refused though the bound is not yet reached. Every
-    align bit-equal to the eager path."""
-    from rgbd360_torch.ops import photoicp
+    align bit-equal to the uncaptured route."""
+    from rgbd360_torch.ops import level_graphs, photoicp
     from rgbd360_torch.parallel import dryrun
     from rgbd360_torch.parallel.batch import align_batch
 
@@ -645,38 +648,38 @@ def test_graph_cache_stops_capturing_at_its_byte_bound(cuda, monkeypatch):
         photoicp.reset_sweep_counts()
         return align_batch(gray[:b], depth[:b], gray[:b], depth[:b], seeds[:b], n_levels=2)
 
-    monkeypatch.setattr(photoicp, "_use_cuda_graphs", lambda device: False)
+    monkeypatch.setattr(level_graphs, "use_cuda_graphs", lambda device: False)
     want = {b: align(b) for b in (2, 4)}
     monkeypatch.undo()
-    photoicp.release_graphs()
-    assert photoicp.held_graph_bytes() == 0
-    monkeypatch.setattr(photoicp, "GRAPH_BYTES_PER_THREAD", 1)
+    photoicp.GRAPH_CACHE.release()
+    assert photoicp.GRAPH_CACHE.held_bytes() == 0
+    monkeypatch.setattr(level_graphs, "GRAPH_BYTES_PER_THREAD", 1)
     for k in range(3):
         dryrun.assert_same_result(align(2), want[2], f"call {k}")
         graphs = dict(photoicp.GRAPHS)
         if k == 0:
             assert graphs["captures"] == graphs["replays"] == 0
-        else:  # one windowed level from its graphs (2 a sweep), the other op by op
+        else:  # one windowed level from its graphs (2 a sweep), the other uncaptured
             assert graphs["captures"] == (4 if k == 1 else 0)
             assert graphs["replays"] > 0 and graphs["eager_bodies"] > 0
-    held = photoicp.held_graph_bytes()
+    held = photoicp.GRAPH_CACHE.held_bytes()
     # at least the key's buffers: 2 pairs x 80 x 480 (the coarse level) x
     # (gray, depth, 8 planes, 8 gathered channels) f32
     assert 2 * 80 * 480 * 18 * 4 <= held < 1 << 30
 
-    photoicp.release_graphs()
-    monkeypatch.setattr(photoicp, "GRAPH_BYTES_PER_THREAD", 8 << 30)
+    photoicp.GRAPH_CACHE.release()
+    monkeypatch.setattr(level_graphs, "GRAPH_BYTES_PER_THREAD", 8 << 30)
     for k in range(2):  # both levels of 2 pairs held
         dryrun.assert_same_result(align(2), want[2], f"batch 2, call {k}")
-    held = photoicp.held_graph_bytes()
+    held = photoicp.GRAPH_CACHE.held_bytes()
     assert photoicp.GRAPHS["eager_bodies"] == 0 and held > 0
-    monkeypatch.setattr(photoicp, "GRAPH_BYTES_PER_THREAD", held + 1)
+    monkeypatch.setattr(level_graphs, "GRAPH_BYTES_PER_THREAD", held + 1)
     for k in range(3):  # 4 pairs of either level would pass the bound
         dryrun.assert_same_result(align(4), want[4], f"batch 4, call {k}")
         assert photoicp.GRAPHS["captures"] == photoicp.GRAPHS["replays"] == 0
-    assert photoicp.held_graph_bytes() == held
-    photoicp.release_graphs()
-    assert photoicp.held_graph_bytes() == 0
+    assert photoicp.GRAPH_CACHE.held_bytes() == held
+    photoicp.GRAPH_CACHE.release()
+    assert photoicp.GRAPH_CACHE.held_bytes() == 0
 
 
 @pytest.mark.cuda

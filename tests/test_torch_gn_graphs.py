@@ -1,8 +1,10 @@
-"""The CPU side of the aligner's CUDA-graph path (ops/photoicp.py,
-_LevelGraphs): the constants the loop now makes on the device keep their
-bits, the CPU runs every loop body op by op and counts it so, the gather's
-and the planes' preallocated outputs, and the benchmark's reader of the
-graph share. The card's side (graph path bit-equal to the eager path) is
+"""The CPU side of the spherical aligner's level loop (ops/photoicp.py,
+_LevelLoop, through ops/level_graphs.py): the constants the loop makes on
+the device keep their bits, the CPU runs every loop body uncaptured and
+counts it so, one key's buffers and segments reused over other inputs equal
+a fresh key's on the exact and both windowed routes, the gather's and the
+planes' preallocated outputs, and the benchmark's reader of the graph
+share. The card's side (captured bit-equal to uncaptured) is
 tests/test_torch_cuda.py's test_graph_path_is_bit_equal_to_the_eager_path.
 """
 
@@ -17,7 +19,7 @@ torch.set_num_threads(2)
 from bench360.lib.harness import Bench  # noqa: E402
 from bench360.reference import linalg6 as frozen_linalg6  # noqa: E402
 from bench360.reference import se3 as frozen_se3  # noqa: E402
-from rgbd360_torch.ops import linalg6, se3  # noqa: E402
+from rgbd360_torch.ops import level_graphs, linalg6, se3  # noqa: E402
 from rgbd360_torch.ops import photoicp as tp  # noqa: E402
 from rgbd360_torch.ops import warp_gather as tw  # noqa: E402
 from rgbd360_torch.parallel.batch import align_batch  # noqa: E402
@@ -104,8 +106,54 @@ def test_the_cpu_runs_every_loop_body_op_by_op_and_counts_it():
 
 
 def test_the_loop_takes_graphs_only_on_a_cuda_device():
-    assert tp._use_cuda_graphs(torch.device("cuda", 0))
-    assert not tp._use_cuda_graphs(torch.device("cpu"))
+    assert level_graphs.use_cuda_graphs(torch.device("cuda", 0))
+    assert not level_graphs.use_cuda_graphs(torch.device("cpu"))
+
+
+def _kept_keys(monkeypatch):
+    """Keep each key's loop from its second use, as the card does, but
+    uncaptured. Returns the devices of the keys made so far."""
+    made = []
+
+    def capture(device):
+        made.append(device)
+        return level_graphs.Segments(tp.GRAPHS)
+
+    monkeypatch.setattr(level_graphs, "use_cuda_graphs", lambda device: True)
+    monkeypatch.setattr(tp, "GRAPH_CACHE", level_graphs.GraphCache(tp.GRAPHS, capture=capture))
+    return made
+
+
+@pytest.mark.parametrize("route", ["exact", "windowed", "full_coverage"])
+def test_one_key_s_buffers_equal_a_fresh_key_over_other_inputs(monkeypatch, route):
+    """align_batch at 2 levels on inputs A, A, B, A through the cache: the
+    first on fresh keys, the others on one key a level, made at the second
+    and reused. Every AlignResult field equals the same input's align
+    through fresh keys (the CPU's route) bit for bit, and so do SWEEPS,
+    GN's counts and GRAPHS; on the windowed routes (forced, as the dry run
+    forces them) the gather runs between the segments, into the key's
+    buffers."""
+    if route != "exact":
+        monkeypatch.setattr(tp, "_use_warp_kernel", lambda shape, device: True)
+    a = _small_pairs(h=40, w=240)
+    inputs = {"A": a, "B": (a[2], a[3], a[0], a[1], a[4])}
+
+    def align(name):
+        tp.reset_sweep_counts()
+        res = align_batch(*inputs[name], n_levels=2, full_coverage=route == "full_coverage")
+        gn = {k: v for k, v in tp.GN.items() if k not in ("host_ns", "wait_ns")}
+        return res, (gn, dict(tp.SWEEPS), dict(tp.GRAPHS))
+
+    fresh = {name: align(name) for name in "AB"}
+    assert fresh["A"][1][1][route] > 0 and fresh["A"][1][0]["iterations"] > 0
+    made = _kept_keys(monkeypatch)
+    for k, name in enumerate("AABA"):
+        res, counts = align(name)
+        want, want_counts = fresh[name]
+        for field in tp.AlignResult._fields:
+            assert torch.equal(_bits(getattr(res, field)), _bits(getattr(want, field))), (k, name, field)
+        assert counts == want_counts, (k, name)
+    assert len(made) == 2
 
 
 @pytest.mark.parametrize("variant", ["mean", "full"])

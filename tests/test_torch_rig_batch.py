@@ -13,8 +13,8 @@ well-posed and runs, with the pose frozen) and a third pair.
 Tolerances:
   * the batch against each pair alone: equal, bit for bit. Every product
     and reduction of a pair has the same shape whatever B
-    (ops/photoicp.py::_matmul_unrolled, photoicp_pinhole._rig_grams), so B
-    changes no rounding;
+    (ops/photoicp.py::_matmul_unrolled and _pair_grams, then each pair's
+    sum over its cameras), so B changes no rounding;
   * the program against the plain reference (bench360/reference/pinhole.py):
     equal, bit for bit: the reference computes the same f32 operations in
     the same order on the same device, its loop scalars as host f32, which
@@ -126,19 +126,19 @@ def test_a_batch_equals_its_pairs_aligned_one_by_one(batch, method):
         assert not bool(lone.ill_posed[0]) and int(lone.num_iterations[0, 0]) > 0
 
 
-_RIG_GRAMS = pp._rig_grams
+_PAIR_GRAMS = pp._pair_grams
 
 
 def _bf16_grams(rows, shape):
     """The sweep's sums from bfloat16 rows: the planted lower precision."""
-    return _RIG_GRAMS(rows.to(torch.bfloat16), shape).to(torch.float32)
+    return _PAIR_GRAMS(rows.to(torch.bfloat16), shape).to(torch.float32)
 
 
 @pytest.mark.parametrize("planted", [False, True], ids=["program", "bf16_sums"])
 def test_the_program_equals_the_plain_reference(batch, monkeypatch, planted):
     images, _ = batch
     if planted:
-        monkeypatch.setattr(pp, "_rig_grams", _bf16_grams)
+        monkeypatch.setattr(pp, "_pair_grams", _bf16_grams)
     prog = _align(images)
     gaps = {"pose": 0.0, "hessian": 0.0, "residuals": 0.0, "iters": 0, "ill": 0}
     for b in range(3):
@@ -282,14 +282,15 @@ def test_on_the_card_a_batch_equals_its_pairs_and_the_reference():
 def test_on_the_card_the_graph_path_equals_the_eager_path(monkeypatch, b):
     """At the deployment's size (8 x 240 x 320, 4 levels) on the card: aligns
     of the same shapes on inputs A, A, B, A replay the level loop from CUDA
-    graphs from the second on (the first runs op by op, the second captures
-    three graphs a level), and each equals the op-by-op loop, forced by the
-    routing predicate, in every PinholeAlignResult field, bit for bit, and
-    in its counts: sweeps, retry rounds, iterations, syncs, pairs retried.
-    B (the pairs swapped) would show a stale buffer."""
+    graphs from the second on (the first runs uncaptured, the second
+    captures three graphs a level), and each equals the same align run
+    uncaptured, forced by the shared predicate (level_graphs.use_cuda_graphs),
+    in every PinholeAlignResult field, bit for bit, and in its counts:
+    sweeps, retry rounds, iterations, syncs, pairs retried. B (the pairs
+    swapped) would show a stale buffer."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from rgbd360_torch.ops import photoicp
+    from rgbd360_torch.ops import level_graphs
 
     dev = torch.device("cuda")
     caps = _room_captures(dev, b + 1)
@@ -306,13 +307,13 @@ def test_on_the_card_the_graph_path_equals_the_eager_path(monkeypatch, b):
         gn = {key: v for key, v in pp.GN.items() if key not in ("host_ns", "wait_ns")}
         return res, gn, dict(pp.SWEEPS), dict(pp.GRAPHS)
 
-    monkeypatch.setattr(photoicp, "_use_cuda_graphs", lambda device: False)
-    eager = {name: align(name) for name in inputs}
+    monkeypatch.setattr(level_graphs, "use_cuda_graphs", lambda device: False)
+    uncaptured = {name: align(name) for name in inputs}
     monkeypatch.undo()
-    pp.release_graphs()
+    pp.GRAPH_CACHE.release()
     for n, name in enumerate("AABA"):
         res, gn, sweeps, graphs = align(name)
-        want, want_gn, want_sweeps, want_graphs = eager[name]
+        want, want_gn, want_sweeps, want_graphs = uncaptured[name]
         for field, a, o in zip(pp.PinholeAlignResult._fields, res, want):
             bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
             assert torch.equal(bits(a), bits(o)), (n, name, field)
@@ -323,8 +324,8 @@ def test_on_the_card_the_graph_path_equals_the_eager_path(monkeypatch, b):
         else:  # 4 levels of 3 graphs; a replay per first sweep, body and retry round
             assert graphs == {"captures": 12 if n == 1 else 0, "eager_bodies": 0,
                               "replays": 4 + gn["iterations"] + sweeps["lm_retries"]}
-    held = pp.held_graph_bytes()
+    held = pp.GRAPH_CACHE.held_bytes()
     print(f"batch {b}: the level loop's graphs hold {held} B; sweeps {sweeps}, GN {gn}")
-    assert 0 < held <= photoicp.GRAPH_BYTES_PER_THREAD
-    pp.release_graphs()
-    assert pp.held_graph_bytes() == 0
+    assert 0 < held <= level_graphs.GRAPH_BYTES_PER_THREAD
+    pp.GRAPH_CACHE.release()
+    assert pp.GRAPH_CACHE.held_bytes() == 0

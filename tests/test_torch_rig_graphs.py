@@ -1,11 +1,11 @@
-"""The CPU side of the robot-frame level loop's CUDA graphs
-(ops/photoicp_pinhole.py, _LevelGraphs): made with no stream, a key's
-segments (first sweep, loop body, retry round) run op by op on the CPU from
-the same buffers and reads as the captured graphs, and equal the op-by-op
-loop bit for bit, with and without retry rounds, in the three methods, and
-count what it counts (SWEEPS, GN); the CPU runs every body op by op and
-counts it so; the benchmark's reader of the graph share. The card's side
-(captured graphs bit-equal to the op-by-op loop) is tests/test_torch_rig_batch.py's
+"""The CPU side of the robot-frame level loop (ops/photoicp_pinhole.py,
+_LevelLoop, through ops/level_graphs.py): one key's buffers and segments
+(first sweep, loop body, retry round), reused over other inputs, equal each
+input run through a fresh key bit for bit, with and without retry rounds,
+in the three methods, and count what it counts (SWEEPS, GN, GRAPHS); the
+CPU runs every body uncaptured and counts it so; the benchmark's reader of
+the graph share. The card's side (captured bit-equal to uncaptured) is
+tests/test_torch_rig_batch.py's
 test_on_the_card_the_graph_path_equals_the_eager_path.
 
 The inputs are test_torch_rig_batch.py's: 8 sensors of 48 x 64 in the
@@ -22,7 +22,7 @@ torch.set_num_threads(2)
 
 import test_torch_rig_batch as rig_batch  # noqa: E402
 from bench360.lib.harness import Bench  # noqa: E402
-from rgbd360_torch.ops import photoicp  # noqa: E402
+from rgbd360_torch.ops import level_graphs, photoicp  # noqa: E402
 from rgbd360_torch.ops import photoicp_pinhole as pp  # noqa: E402
 from rgbd360_torch.parallel.batch import align_batch_rig  # noqa: E402
 from rgbd360_torch.utils import timing  # noqa: E402
@@ -60,20 +60,19 @@ def levels():
     return out
 
 
-def _uncaptured_route(monkeypatch):
-    """Send the level loop through _LevelGraphs made with no stream, one
-    per key as the thread cache keeps them: the graph route's buffers,
-    segments and reads, op by op."""
-    keys = {}
+def _kept_keys(monkeypatch):
+    """Keep each key's loop from its second use, as the card does, but
+    uncaptured: the CPU runs one key's buffers and segments again and
+    again. Returns the devices of the keys made so far."""
+    made = []
 
-    def level_graphs(device, bsz, spec, level, k_full, cam_rts):
-        if (device, bsz, spec) not in keys:
-            keys[device, bsz, spec] = pp._LevelGraphs(spec, level, k_full, cam_rts)
-        return keys[device, bsz, spec]
+    def capture(device):
+        made.append(device)
+        return level_graphs.Segments(pp.GRAPHS)
 
-    monkeypatch.setattr(photoicp, "_use_cuda_graphs", lambda device: True)
-    monkeypatch.setattr(pp, "_level_graphs", level_graphs)
-    return keys
+    monkeypatch.setattr(level_graphs, "use_cuda_graphs", lambda device: True)
+    monkeypatch.setattr(pp, "GRAPH_CACHE", level_graphs.GraphCache(pp.GRAPHS, capture=capture))
+    return made
 
 
 def _counts():
@@ -85,10 +84,11 @@ def _counts():
 @pytest.mark.parametrize("method", METHODS.values(), ids=METHODS.keys())
 @pytest.mark.parametrize("case, lvl, max_iters", [("retries", 1, 10), ("no_retry", 1, 2), ("no_body", 2, 0)])
 def test_the_segments_equal_the_op_by_op_loop(levels, monkeypatch, method, case, lvl, max_iters):
-    """One level of inputs A, B, A through one key's segments: each run's
-    pose, state, iterations and ill-posed flag equal the op-by-op loop's
-    bit for bit, and so do its SWEEPS and GN counts; a run's result is a
-    copy that the next run leaves alone."""
+    """One level of inputs A, A, B, A through the cache: the first run on a
+    fresh key, the others on one key's buffers and segments. Each run's
+    pose, state, iterations and ill-posed flag equal the same input run
+    through a fresh key bit for bit, and so do its SWEEPS, GN and GRAPHS
+    counts; a run's result is a copy that the next runs leave alone."""
 
     def run(name):
         pp.reset_sweep_counts()
@@ -97,29 +97,28 @@ def test_the_segments_equal_the_op_by_op_loop(levels, monkeypatch, method, case,
                               lm_step=10.0, cam_rts=RTS)
         return out, _counts(), dict(pp.GRAPHS)
 
-    eager = {name: run(name) for name in "AB"}
-    for name, (_out, (gn, sweeps), graphs) in eager.items():
+    fresh = {name: run(name) for name in "AB"}
+    for name, (_out, (gn, sweeps), graphs) in fresh.items():
         assert graphs == {"captures": 0, "replays": 0, "eager_bodies": gn["iterations"]}
         assert sweeps["sweeps"] == 1 + gn["iterations"] + sweeps["lm_retries"]
         if case == "retries":
             assert sweeps["lm_retries"] > 0 and gn["pair_retries"] >= sweeps["lm_retries"]
         else:
             assert sweeps["lm_retries"] == 0 and gn["iterations"] == max_iters
-    keys = _uncaptured_route(monkeypatch)
-    got = [(name, run(name)) for name in "ABA"]
-    assert len(keys) == 1
+    made = _kept_keys(monkeypatch)
+    got = [(name, run(name)) for name in "AABA"]
+    assert len(made) == 1
     for k, (name, (out, counts, graphs)) in enumerate(got):
-        want, want_counts, _graphs = eager[name]
+        want, want_counts, want_graphs = fresh[name]
         _same(out, want, f"run {k} ({name})")
-        assert counts == want_counts, (k, name)
-        assert graphs == {"captures": 0, "eager_bodies": 0,
-                          "replays": 1 + counts[0]["iterations"] + counts[1]["lm_retries"]}
-    _same(got[0][1][0], eager["A"][0], "the first run's result after the others")
+        assert counts == want_counts and graphs == want_graphs, (k, name)
+    _same(got[1][1][0], fresh["A"][0], "the key's first result after the others")
 
 
 def test_a_whole_align_through_the_segments_equals_the_op_by_op_one(monkeypatch):
-    """align_batch_rig, 3 levels, through the segments: the op-by-op
-    result, counts, reads and spans, twice on the same keys."""
+    """align_batch_rig, 3 levels, three times through the cache (fresh
+    keys, then one key a level made and reused): the fresh result, counts,
+    reads and spans each time."""
     images = [torch.stack([p[j] for p in (rig_batch._pair(1), rig_batch._pair(4))]) for j in range(4)]
 
     def align():
@@ -132,25 +131,24 @@ def test_a_whole_align_through_the_segments_equals_the_op_by_op_one(monkeypatch)
         finally:
             timing.stage_timing(False)
             timing.reset_timing()
-        return res, _counts(), names
+        return res, _counts(), names, dict(pp.GRAPHS)
 
-    want, want_counts, want_names = align()
-    assert want_counts[1]["lm_retries"] > 0 and pp.GRAPHS["eager_bodies"] == want_counts[0]["iterations"]
-    keys = _uncaptured_route(monkeypatch)
-    for k in range(2):
-        res, counts, names = align()
+    want, want_counts, want_names, want_graphs = align()
+    assert want_counts[1]["lm_retries"] > 0 and want_graphs["eager_bodies"] == want_counts[0]["iterations"]
+    made = _kept_keys(monkeypatch)
+    for k in range(3):
+        res, counts, names, graphs = align()
         _same(res, want, f"align {k}")
-        assert counts == want_counts and names == want_names, k
-        assert pp.GRAPHS["eager_bodies"] == 0
-    assert len(keys) == 3
+        assert counts == want_counts and names == want_names and graphs == want_graphs, k
+    assert len(made) == 3
 
 
 def test_the_cpu_runs_every_body_op_by_op_and_counts_it(monkeypatch):
-    """On the CPU the loop never asks for graphs: every body is an eager
+    """On the CPU the loop never asks for a capture: every body is an eager
     one, a second run of the same shapes too; reset_sweep_counts() clears
-    GRAPHS. The route is photoicp's predicate: a CUDA device's."""
+    GRAPHS. The route is the shared predicate: a CUDA device's."""
     asked = []
-    monkeypatch.setattr(pp, "_level_graphs", lambda *args: asked.append(args))
+    monkeypatch.setattr(pp.GRAPH_CACHE, "capture", asked.append)
     images = [torch.stack([rig_batch._pair(1)[j]]) for j in range(4)]
     pp.reset_sweep_counts()
     assert pp.GRAPHS == {"captures": 0, "replays": 0, "eager_bodies": 0}
@@ -161,7 +159,8 @@ def test_the_cpu_runs_every_body_op_by_op_and_counts_it(monkeypatch):
     assert pp.GRAPHS == {"captures": 0, "replays": 0, "eager_bodies": pp.GN["iterations"]}
     pp.reset_sweep_counts()
     assert set(pp.GRAPHS.values()) == {0}
-    assert photoicp._use_cuda_graphs(torch.device("cuda", 0)) and not photoicp._use_cuda_graphs(torch.device("cpu"))
+    assert level_graphs.use_cuda_graphs(torch.device("cuda", 0))
+    assert not level_graphs.use_cuda_graphs(torch.device("cpu"))
 
 
 def _reader():
