@@ -47,9 +47,14 @@ the live map viewer and the pair mesh — and checks them end to end:
      frame the synchronised times of the frame's device program (undistort,
      stitch and plane statistics), the collect, the host fit, the PbMap
      registration and the align;
-  5e. the SLAM loop: SphereGraphSLAM (apps/sphere_graph_slam.py) on the
+  5e. the SLAM loop: first the plane refinement's growth kernel
+     (csrc/planes_refine.cu) on loop frame 8 at the sensor program's shape
+     (8 x 120 x 160; 138 rounds on its slowest sensor): labels and each
+     sensor's rounds equal to the plain loop's on the card. Then
+     SphereGraphSLAM (apps/sphere_graph_slam.py) on the
      card over a 40-frame loop of the room (radius 1.1 m, 9 deg and ~17 cm
-     per step, ~6.9 m of trajectory): every frame tracked or relocalized, at
+     per step, ~6.9 m of trajectory): every frame's refinement one kernel
+     launch and no plain loop (planes_seg.REFINE), every frame tracked or relocalized, at
      least one loop closure accepted and the graph optimized, the sweeps
      carried by their kernels (the full-coverage sweeps of the loop
      closer's refinements by the FULL form of warp_gather_batched_multi),
@@ -139,7 +144,11 @@ the live map viewer and the pair mesh — and checks them end to end:
      kernel beside its plain version at the L0 shape (the multi-anchor pass
      with both anchor sets), with its bound: the bytes it must move (inputs
      read once, outputs written once) at the H100 SXM's 3.35 TB/s; a gather
-     does no arithmetic to bound it.
+     does no arithmetic to bound it. The growth kernel was timed in 5e,
+     beside the plain loop, with the same byte bound (its rounds, not its
+     bytes, set its time); its launches are counted in every path, and
+     each path that builds planes on the card (5c, 5d, 5e, 5f, 5j) must
+     have launched it.
 
 Any failed check raises, and the script exits non-zero. The last line of
 its output is the JSON status line. Run from the repository root:
@@ -286,6 +295,23 @@ def yaw(angle: float) -> np.ndarray:
     return pose
 
 
+def reset_kernel_counts() -> None:
+    """Zero the launch counts of every hand-written kernel: the gathers'
+    (warp_gather.LAUNCHES) and the plane refinement's (planes_seg.REFINE)."""
+    from rgbd360_torch.ops import planes_seg, warp_gather
+    from rgbd360_torch.utils import timing
+
+    warp_gather.reset_launch_counts()
+    timing.reset_counts(planes_seg.REFINE)
+
+
+def kernel_launches() -> dict:
+    """Each hand-written kernel's launches since reset_kernel_counts()."""
+    from rgbd360_torch.ops import planes_seg, warp_gather
+
+    return {**warp_gather.LAUNCHES, "refine_grow": planes_seg.REFINE["kernel"]}
+
+
 def _stage_ms(text: str, name: str) -> list:
     return [float(ms) for ms in re.findall(rf"^{re.escape(name)} took ([0-9.]+) ms$", text, re.M)]
 
@@ -328,14 +354,14 @@ def odometry_phase(dev, card, calib_root, seq, gt) -> tuple:
             try:
                 warp_gather.PIPELINE_KERNEL = pipelined
                 timing.stage_timing(True)
-                warp_gather.reset_launch_counts()
+                reset_kernel_counts()
                 photoicp.reset_sweep_counts()
                 t0 = time.perf_counter()
                 with contextlib.redirect_stdout(buf):
                     rc = odometry.main([short, "--calib-root", calib_root, "--out", out, "--device", str(dev)])
                 torch.cuda.synchronize()
                 app_ms = (time.perf_counter() - t0) * 1000.0
-                launches, sweeps = dict(warp_gather.LAUNCHES), dict(photoicp.SWEEPS)
+                launches, sweeps = kernel_launches(), dict(photoicp.SWEEPS)
             finally:
                 warp_gather.PIPELINE_KERNEL = True
                 timing.stage_timing(False)
@@ -366,15 +392,17 @@ def odometry_phase(dev, card, calib_root, seq, gt) -> tuple:
     return route_launches, route_traj["default"]
 
 
-def planes_phase(dev, card, calib_root, seq) -> None:
+def planes_phase(dev, card, calib_root, seq) -> dict:
     """Phase 5c: the plane layer on the card against the port's CPU planes,
-    and a lower-precision control that the label gate must reject."""
+    and a lower-precision control that the label gate must reject. Returns
+    the launch counts of the phase."""
     from rgbd360_torch.core import plane_extraction
     from rgbd360_torch.core.frame360 import Frame360
     from rgbd360_torch.io.calib import Calib360
 
     calib = Calib360.load(calib_root)
     frame_path = os.path.join(seq, "sphere_images_1.bin")
+    reset_kernel_counts()
     on_card = Frame360(calib, 1, dev).build(frame_path)
     on_cpu = Frame360(calib, 1, "cpu").build(frame_path)
 
@@ -417,6 +445,7 @@ def planes_phase(dev, card, calib_root, seq) -> None:
               f"hull area {da:.3g} relative (limit {PLANE_AREA_LIMIT})", flush=True)
         if dn > PLANE_NORMAL_LIMIT or dd > PLANE_D_LIMIT or da > PLANE_AREA_LIMIT:
             raise AssertionError(f"need_inliers={need_inliers}: the card's planes deviate from the CPU's")
+    return kernel_launches()
 
 
 def refine_differences(xyz2, pre, lab_a, lab_b) -> int:
@@ -452,7 +481,7 @@ def with_planes_phase(dev, card, calib_root, seq, gt) -> dict:
     from rgbd360_torch.core.matcher import PLANAR_3DOF
     from rgbd360_torch.core.register_rgbd360 import RegisterRGBD360
     from rgbd360_torch.io.calib import Calib360
-    from rgbd360_torch.ops import photoicp, warp_gather
+    from rgbd360_torch.ops import photoicp
     from rgbd360_torch.utils import timing
     from tools import synthetic_rig as rig
 
@@ -473,14 +502,14 @@ def with_planes_phase(dev, card, calib_root, seq, gt) -> dict:
         buf = io.StringIO()
         try:
             timing.stage_timing(True)
-            warp_gather.reset_launch_counts()
+            reset_kernel_counts()
             photoicp.reset_sweep_counts()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
                 rc = odometry.main([seq, "--calib-root", calib_root, "--out", out, "--with-planes", "--device", str(dev)])
             torch.cuda.synchronize()
             app_ms = (time.perf_counter() - t0) * 1000.0
-            launches, sweeps = dict(warp_gather.LAUNCHES), dict(photoicp.SWEEPS)
+            launches, sweeps = kernel_launches(), dict(photoicp.SWEEPS)
         finally:
             timing.stage_timing(False)
         text = buf.getvalue()
@@ -532,6 +561,54 @@ def _rot_deg(pose_a: np.ndarray, pose_b: np.ndarray) -> float:
     return float(np.degrees(np.arctan2(sin, (np.trace(r) - 1.0) / 2.0)))
 
 
+REFINE_FRAME = 8  # loop frame 8 (capture 7): the slowest sensor's refinement runs 138 rounds
+TIMED_REFINES = 50
+
+
+def refine_phase(dev, card, calib_root, seq) -> dict:
+    """Phase 5e, first part: the plane refinement's growth loop of loop
+    frame REFINE_FRAME as the frame program makes its inputs, the kernel
+    against the plain loop on the card (labels; each sensor's rounds), then
+    both timed, in turns. Returns the kernel's record for the kernels line."""
+    from rgbd360_torch.core.frame360 import Frame360
+    from rgbd360_torch.io.calib import Calib360
+    from rgbd360_torch.ops import planes_seg
+
+    frame = Frame360(Calib360.load(calib_root), REFINE_FRAME, dev)
+    frame.load_frame(os.path.join(seq, f"sphere_images_{REFINE_FRAME}.bin"))
+    grow, seen = planes_seg.grow_labels, []
+    try:
+        planes_seg.grow_labels = lambda *a: seen.append(a) or grow(*a)
+        frame.build_device_fused()
+    finally:
+        planes_seg.grow_labels = grow
+    args = seen[-1]
+    got, rounds = planes_seg.grow_labels(*args)
+    want, want_rounds = planes_seg.grow_labels_plain(*args)
+    torch.cuda.synchronize()
+    per_sensor = rounds.cpu().tolist()
+    alone = [planes_seg.grow_labels_plain(*[a[s:s + 1].contiguous() for a in args[:6]], *args[6:])[1]
+             for s in range(len(per_sensor))]
+    same = bool(torch.equal(got, want))
+    max_abs_err = int((got.long() - want.long()).abs().max())
+    print(f"refine_grow kernel vs plain loop, loop frame {REFINE_FRAME} {tuple(got.shape)}: labels equal {same} "
+          f"(max_abs_err {max_abs_err}); "
+          f"rounds per sensor {per_sensor}, plain {alone} (batch {want_rounds})", flush=True)
+    if not (same and per_sensor == alone and max(per_sensor) == want_rounds):
+        raise AssertionError("the growth kernel disagrees with the plain loop")
+    kernel_fn = lambda: planes_seg.grow_labels(*args)
+    plain_fn = lambda: planes_seg.grow_labels_plain(*args)
+    n_plain = 3
+    k1, p1, p2, k2 = (cuda_ms(fn, n) for fn, n in ((kernel_fn, TIMED_REFINES), (plain_fn, n_plain),
+                                                    (plain_fn, n_plain), (kernel_fn, TIMED_REFINES)))
+    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    bound_ms = gather_bound_ms(*args[:6], got)
+    print(f"[{card}] refine_grow at {tuple(got.shape)}, {max(per_sensor)} rounds: kernel {ms:.4f} ms "
+          f"({ms / max(per_sensor) * 1000:.2f} us a round), plain loop {plain_ms:.2f} ms, bound {bound_ms:.4f} ms by "
+          f"bytes ({bound_ms / ms:.2%} of it reached), 1 launch a call", flush=True)
+    return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "rounds": per_sensor}
+
+
 def slam_phase(dev, card, calib_root, seq, gt) -> dict:
     """Phase 5e: SphereGraphSLAM over the SLAM_FRAMES-frame loop on the
     card, its loop closures held to the ground truth and to the facade's
@@ -547,7 +624,7 @@ def slam_phase(dev, card, calib_root, seq, gt) -> dict:
     from rgbd360_torch.core.relocalizer import Relocalizer360
     from rgbd360_torch.io.boost_archive import write_frame360_bin
     from rgbd360_torch.io.calib import Calib360
-    from rgbd360_torch.ops import photoicp, warp_gather
+    from rgbd360_torch.ops import photoicp, planes_seg
     from rgbd360_torch.utils import timing
     from tools import synthetic_rig as rig
 
@@ -564,20 +641,24 @@ def slam_phase(dev, card, calib_root, seq, gt) -> dict:
     buf = io.StringIO()
     try:
         timing.stage_timing(True)
-        warp_gather.reset_launch_counts()
+        reset_kernel_counts()
         photoicp.reset_sweep_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             session = sphere_graph_slam.run([seq, "--calib-root", calib_root, "--device", str(dev)])
         torch.cuda.synchronize()
         app_ms = (time.perf_counter() - t0) * 1000.0
-        launches, sweeps = dict(warp_gather.LAUNCHES), dict(photoicp.SWEEPS)
+        launches, sweeps = kernel_launches(), dict(photoicp.SWEEPS)
+        refine = dict(planes_seg.REFINE)
     finally:
         timing.stage_timing(False)
     text = buf.getvalue()
     lines = [line for line in text.splitlines() if line.startswith("frame ")]
     print("".join(line + "\n" for line in lines) + text.splitlines()[-1], flush=True)
     kernels_carried("SphereGraphSLAM", launches, sweeps)
+    print(f"SphereGraphSLAM planes_seg.REFINE: {refine}", flush=True)
+    if refine["kernel"] < SLAM_FRAMES or refine["host_loop"] != 0:
+        raise AssertionError(f"SphereGraphSLAM: the refinement did not run through its kernel: {refine}")
     world, lc = session.world, session.loop_closer
     placed = sum((" tracked vs " in line or "RELOCALIZED" in line or "first keyframe" in line) for line in lines)
     if len(lines) != SLAM_FRAMES or placed != SLAM_FRAMES or len(world) != SLAM_FRAMES:
@@ -606,13 +687,13 @@ def slam_phase(dev, card, calib_root, seq, gt) -> dict:
     else:
         last = len(world) - 1
         world.trajectory_increments[last] += 2 * loop_closure.MIN_TRAJECTORY_GAP
-        warp_gather.reset_launch_counts()
+        reset_kernel_counts()
         photoicp.reset_sweep_counts()
         t0 = time.perf_counter()
         accepted = lc.process_new_keyframe(last)
         torch.cuda.synchronize()
         extra_ms = (time.perf_counter() - t0) * 1000.0
-        extra_launches, extra_sweeps = dict(warp_gather.LAUNCHES), dict(photoicp.SWEEPS)
+        extra_launches, extra_sweeps = kernel_launches(), dict(photoicp.SWEEPS)
         print(f"batched refinement: the loop's closures refined one survivor each; keyframe {last} once more with "
               f"its trajectory gap raised: pairs per refinement {lc.refinements}, {accepted} accepted, "
               f"{extra_ms:.1f} ms", flush=True)
@@ -700,12 +781,12 @@ def kf_slam_phase(dev, card, calib_root, seq) -> dict:
     and off in alternating runs. Returns the launch counts of the first run
     (speculation on)."""
     from rgbd360_torch.apps import kf_sphere_slam
-    from rgbd360_torch.ops import photoicp, warp_gather
+    from rgbd360_torch.ops import photoicp
 
     runs, first = [], None
     for k, spec in enumerate((True, False, False, True)[:KF_SLAM_RUNS]):
         buf = io.StringIO()
-        warp_gather.reset_launch_counts()
+        reset_kernel_counts()
         photoicp.reset_sweep_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
@@ -718,7 +799,7 @@ def kf_slam_phase(dev, card, calib_root, seq) -> dict:
         frame_ms = np.array(_frame_ms(text))
         runs.append((spec, kinds, [np.asarray(p) for p in slam.world.trajectory_poses], frame_ms))
         if k == 0:
-            first = dict(warp_gather.LAUNCHES)
+            first = kernel_launches()
             print(text.splitlines()[-1], flush=True)
         counts = slam.speculative_counts
         print(f"[{card}] KFsphere_SLAM run {k + 1}, speculative_align {'on' if spec else 'off'}: "
@@ -747,12 +828,12 @@ def methods_phase(dev, card, calib_root, seq, gt) -> tuple:
     from rgbd360_torch.apps.common import default_matcher_config
     from rgbd360_torch.core.frame360 import Frame360
     from rgbd360_torch.io.calib import Calib360
-    from rgbd360_torch.ops import photoicp, photoicp_pinhole, warp_gather
+    from rgbd360_torch.ops import photoicp, photoicp_pinhole
 
     path = lambda n: os.path.join(seq, f"sphere_images_{n}.bin")
 
     def reset():
-        warp_gather.reset_launch_counts()
+        reset_kernel_counts()
         photoicp.reset_sweep_counts()
         photoicp_pinhole.reset_sweep_counts()
 
@@ -763,7 +844,7 @@ def methods_phase(dev, card, calib_root, seq, gt) -> tuple:
         methods_register.run([path(1), path(2), "--calib-root", calib_root, "--device", str(dev)])
     torch.cuda.synchronize()
     app_ms = (time.perf_counter() - t0) * 1000.0
-    app_launches, sweeps = dict(warp_gather.LAUNCHES), dict(photoicp.SWEEPS)
+    app_launches, sweeps = kernel_launches(), dict(photoicp.SWEEPS)
     print(buf.getvalue().rstrip(), flush=True)
     print(f"[{card}] methods_register app, frames 1->2: {app_ms:.1f} ms (frame builds and planes included); "
           f"launches {app_launches} sweeps {sweeps}", flush=True)
@@ -790,7 +871,7 @@ def methods_phase(dev, card, calib_root, seq, gt) -> tuple:
             t0 = time.perf_counter()
             pose = method()
             ms = (time.perf_counter() - t0) * 1000.0
-            launches, sweeps, pinhole = dict(warp_gather.LAUNCHES), dict(photoicp.SWEEPS), dict(photoicp_pinhole.SWEEPS)
+            launches, sweeps, pinhole = kernel_launches(), dict(photoicp.SWEEPS), dict(photoicp_pinhole.SWEEPS)
             if pose is None:
                 raise AssertionError(f"methods_register 1->{j}: {name} failed on the card")
             err_t, err_deg = np.linalg.norm(pose[:3, 3] - truth[j - 1][:3, 3]), _rot_deg(pose, truth[j - 1])
@@ -834,12 +915,12 @@ def graph_phase(dev, card, calib_root, seq, gt) -> dict:
     """Phase 5h: register_graph_sphere over the first GRAPH_FRAMES frames of
     the loop. Returns the launch counts of the app's run."""
     from rgbd360_torch.apps import register_graph_sphere
-    from rgbd360_torch.ops import photoicp, warp_gather
+    from rgbd360_torch.ops import photoicp
     from tools import synthetic_rig as rig
 
     with tempfile.TemporaryDirectory() as tmp:
         buf = io.StringIO()
-        warp_gather.reset_launch_counts()
+        reset_kernel_counts()
         photoicp.reset_sweep_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
@@ -847,7 +928,7 @@ def graph_phase(dev, card, calib_root, seq, gt) -> dict:
                                              "--batch", str(GRAPH_BATCH), "--out", tmp, "--device", str(dev)])
         torch.cuda.synchronize()
         app_ms = (time.perf_counter() - t0) * 1000.0
-        launches, sweeps = dict(warp_gather.LAUNCHES), dict(photoicp.SWEEPS)
+        launches, sweeps = kernel_launches(), dict(photoicp.SWEEPS)
         optimized = np.loadtxt(os.path.join(tmp, "graph_poses.txt")).reshape(-1, 4, 4)
         edges = {}
         with open(os.path.join(tmp, "sphere_graph.g2o")) as f:
@@ -935,7 +1016,7 @@ def calibration_phase(dev, card) -> dict:
                                     pair_calibrator, visualize_calibration)
     from rgbd360_torch.apps.get_control_planes import load_correspondences
     from rgbd360_torch.core.calibrator import construction_specs
-    from rgbd360_torch.ops import photoicp, warp_gather
+    from rgbd360_torch.ops import photoicp
     from tools import synthetic_rig as rig
 
     load_rt = lambda d: np.stack([np.loadtxt(os.path.join(d, f"Rt_0{s + 1}.txt")) for s in range(8)])
@@ -1009,10 +1090,10 @@ def calibration_phase(dev, card) -> dict:
         if rc != 0 or len(frame_lines(text)) != CALIB_ONLINE_FRAMES:
             raise AssertionError(f"online_calibration: rc {rc}")
 
-        warp_gather.reset_launch_counts()
+        reset_kernel_counts()
         photoicp.reset_sweep_counts()
         rc, text, ms = _run_app(eval_calibration.main, evaluate + ["--device", str(dev)], timed=True)
-        launches, sweeps = dict(warp_gather.LAUNCHES), dict(photoicp.SWEEPS)
+        launches, sweeps = kernel_launches(), dict(photoicp.SWEEPS)
         align_ms = _stage_ms(text, "Dense alignment 360")
         text = _untimed(text)
         fitness = r"avScoreFitness .*: ([0-9.]+)"
@@ -1067,17 +1148,20 @@ def stereo_parity(dev, png: str, depth_bin: str) -> dict:
     return out
 
 
-def stereo_phase(dev, card) -> None:
+def stereo_phase(dev, card) -> dict:
     """Phase 5j: load_stereo on the card on the room's stereo panorama at
     1024 x 180, held to the port's CPU run; the stereo device program's warm
     time; tof_calibrator --demo on the card against the CPU and the JAX
-    demo's ground-truth error."""
+    demo's ground-truth error. Returns the launch counts of the panorama's
+    part and of the ToF calibrator's."""
     from PIL import Image
 
     from rgbd360_torch.apps import load_stereo, tof_calibrator
     from rgbd360_torch.core.frame360_stereo import Frame360Stereo, stereo_plane_stats, write_stereo_depth
     from tools import synthetic_rig as rig
 
+    launches = {}
+    reset_kernel_counts()
     with tempfile.TemporaryDirectory() as tmp:
         rgb, depth = rig.raycast_room_stereo(rig.stereo_pose())
         png, depth_bin = os.path.join(tmp, "stereo.png"), os.path.join(tmp, "stereo_depth.bin")
@@ -1104,7 +1188,9 @@ def stereo_phase(dev, card) -> None:
           f"{planes_ms:.1f} ms", flush=True)
     if rc != 0 or f"planes: {parity['planes'][1]}" not in text:
         raise AssertionError(f"load_stereo: rc {rc}")
+    launches["stereo_panorama"] = kernel_launches()
 
+    reset_kernel_counts()
     rc, text, tof_ms = _run_app(tof_calibrator.main, ["--demo", "--device", str(dev)])
     dr, dt = (float(x) for x in re.search(r"\|dR\|=(\S+) \|dt\|=(\S+)", text).groups())
     # the demo's estimate, computed as the app does, on the card and the CPU
@@ -1117,6 +1203,8 @@ def stereo_phase(dev, card) -> None:
           f"ground-truth error |dR| {dr} |dt| {dt} (the JAX demo's {TOF_DEMO_GT})", flush=True)
     if rc != 0 or gap > 1e-5 or dr > 1.01 * TOF_DEMO_GT[0] or dt > 1.01 * TOF_DEMO_GT[1]:
         raise AssertionError("tof_calibrator --demo: the card's estimate differs from the CPU's or misses the truth")
+    launches["tof_calibrator"] = kernel_launches()
+    return launches
 
 
 def capture_phase(dev, card, calib_root, seq, gt, dense_traj) -> dict:
@@ -1130,7 +1218,7 @@ def capture_phase(dev, card, calib_root, seq, gt, dense_traj) -> dict:
     import filecmp
 
     from rgbd360_torch.apps import grabber, online_odometry
-    from rgbd360_torch.ops import photoicp, warp_gather
+    from rgbd360_torch.ops import photoicp
     from tools import synthetic_rig as rig
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1143,11 +1231,11 @@ def capture_phase(dev, card, calib_root, seq, gt, dense_traj) -> dict:
         if rc != 0 or len(names) != ODOMETRY_FRAMES or not all(same):
             raise AssertionError(f"grabber --replay: rc {rc}, {sum(same)} of {len(names)} files equal")
 
-        warp_gather.reset_launch_counts()
+        reset_kernel_counts()
         photoicp.reset_sweep_counts()
         rc, text, app_ms = _run_app(online_odometry.main,
                                     ["--dataset", copy, "--calib-root", calib_root, "--out", out, "--device", str(dev)])
-        launches, sweeps = dict(warp_gather.LAUNCHES), dict(photoicp.SWEEPS)
+        launches, sweeps = kernel_launches(), dict(photoicp.SWEEPS)
         traj = np.loadtxt(os.path.join(out, "trajectory_online.txt")).reshape(-1, 4, 4)
     print("".join(line + "\n" for line in text.splitlines() if line.startswith("frame ")), end="")
     errs = rig.relative_pose_errors(traj, gt)
@@ -1270,18 +1358,18 @@ def mesh_phase(dev, card, operands, main_res) -> dict:
     per batch of the split against the unsplit call. Returns the launch
     counts of the golden split, the dry run's kernel leg and its loop-
     closure leg."""
-    from rgbd360_torch.ops import photoicp, warp_gather
+    from rgbd360_torch.ops import photoicp
     from rgbd360_torch.parallel import dryrun
     from rgbd360_torch.parallel import mesh as pmesh
     from rgbd360_torch.parallel.batch import align_batch
 
     mesh = pmesh.make_mesh()
     mesh = mesh[:max(d for d in (1, 2, 4, 8) if d <= len(mesh))]  # the cards that divide the batch
-    warp_gather.reset_launch_counts()
+    reset_kernel_counts()
     photoicp.reset_sweep_counts()
     res = pmesh.align_batch_sharded(mesh, *operands, photoicp.PHOTO_DEPTH, N_LEVELS)
     torch.cuda.synchronize()
-    golden = (dict(warp_gather.LAUNCHES), dict(photoicp.SWEEPS))
+    golden = (kernel_launches(), dict(photoicp.SWEEPS))
     dryrun.assert_same_result(res, main_res, "mesh golden")
     print(f"[{card}] align_batch_sharded over make_mesh() ({len(mesh)} shard(s), {len(set(mesh))} distinct card(s)) "
           f"on the golden pair, B={BATCH}: bit-equal to phase 4's align_batch, signature "
@@ -1452,11 +1540,11 @@ def main() -> int:
             l0_operands = (planes, r2d, c2d, miss, vis2d.contiguous())
 
     # -- 4. the main path ---------------------------------------------------------
-    warp_gather.reset_launch_counts()
+    reset_kernel_counts()
     photoicp.reset_sweep_counts()
     res = align_batch(gray_src, depth_src, gray_trg, depth_trg, eye, photoicp.PHOTO_DEPTH, N_LEVELS)
     torch.cuda.synchronize()
-    launches = dict(warp_gather.LAUNCHES)
+    launches = kernel_launches()
     sweeps = dict(photoicp.SWEEPS)
     poses = res.pose.cpu().numpy()
     for i in range(BATCH):
@@ -1481,11 +1569,11 @@ def main() -> int:
     # the single-buffer route: warp_gather_batched runs the _kernel pass
     try:
         warp_gather.PIPELINE_KERNEL = False
-        warp_gather.reset_launch_counts()
+        reset_kernel_counts()
         photoicp.reset_sweep_counts()
         res = align_batch(gray_src, depth_src, gray_trg, depth_trg, eye, photoicp.PHOTO_DEPTH, N_LEVELS)
         torch.cuda.synchronize()
-        single_launches, single_sweeps = dict(warp_gather.LAUNCHES), dict(photoicp.SWEEPS)
+        single_launches, single_sweeps = kernel_launches(), dict(photoicp.SWEEPS)
     finally:
         warp_gather.PIPELINE_KERNEL = True
     poses = res.pose.cpu().numpy()
@@ -1529,7 +1617,7 @@ def main() -> int:
         gt = rig.write_sequence(seq, rig.write_calib_root(calib_root), frames=ODOMETRY_FRAMES)
         print(f"odometry dataset: {ODOMETRY_FRAMES} frames written in {time.perf_counter() - t0:.2f} s", flush=True)
         odometry_launches, dense_traj = odometry_phase(dev, card, calib_root, seq, gt)
-        planes_phase(dev, card, calib_root, seq)
+        plane_layer_launches = planes_phase(dev, card, calib_root, seq)
         planes_launches = with_planes_phase(dev, card, calib_root, seq, gt)
         methods_launches, occ1_launches = methods_phase(dev, card, calib_root, seq, gt)
         t0 = time.perf_counter()
@@ -1544,6 +1632,7 @@ def main() -> int:
         gt = rig.write_sequence(seq, rig.write_calib_root(calib_root), frames=SLAM_FRAMES, loops=SLAM_LOOPS,
                                 radius=SLAM_RADIUS, workers=min(8, os.cpu_count() or 1))
         print(f"SLAM loop: {SLAM_FRAMES} frames written in {time.perf_counter() - t0:.2f} s", flush=True)
+        refine_measured = refine_phase(dev, card, calib_root, seq)
         slam_launches = slam_phase(dev, card, calib_root, seq, gt)
         kf_slam_launches = kf_slam_phase(dev, card, calib_root, seq)
         graph_launches = graph_phase(dev, card, calib_root, seq, gt)
@@ -1552,7 +1641,7 @@ def main() -> int:
     # -- 5i-5j. the calibration suite, the stereo frame and the ToF calibrator ------------
     t0 = time.perf_counter()
     calibration_launches = calibration_phase(dev, card)
-    stereo_phase(dev, card)
+    stereo_launches = stereo_phase(dev, card)
     print(f"phases 5i-5j: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- 5m. the pair mesh ----------------------------------------------------------------
@@ -1569,6 +1658,7 @@ def main() -> int:
         "methods_register": methods_launches, "methods_register_occ1": occ1_launches,
         "register_graph_sphere": graph_launches, "eval_calibration": calibration_launches,
         "online_odometry": online_launches, **mesh_launches,
+        "plane_layer": plane_layer_launches, **stereo_launches,
     }
 
     # -- 6. timing -------------------------------------------------------------------
@@ -1665,6 +1755,20 @@ def main() -> int:
             record["anchor_sets"] = {"dual": measured[name], "full": measured[name + " FULL"]}
         kernels.append(record)
 
+    # the refinement's launches in every path that counted them (the dry
+    # run's legs count their gathers alone); each path that builds planes
+    # on the card launched it
+    refine_by_path = {path: counts["refine_grow"] for path, counts in path_launches.items() if "refine_grow" in counts}
+    missed = [path for path in ("plane_layer", "with_planes_odometry", "slam_loop", "kf_slam_loop", "stereo_panorama",
+                                "tof_calibrator") if refine_by_path[path] == 0]
+    if missed:
+        raise AssertionError(f"the refinement did not launch its kernel in {missed}: {refine_by_path}")
+    kernels.append({
+        "name": "refine_grow", "route": "cuda", "source": "rgbd360_torch/csrc/planes_refine.cu",
+        "replaces": "rgbd360_tpu/ops/planes_seg.py:313 (a lax.while_loop; no Pallas kernel)",
+        "launches": refine_by_path["slam_loop"], "launches_by_path": refine_by_path, **refine_measured,
+        "bound_by": "bytes", "library_ms": None,
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,9 +13,10 @@ include/Frame360.h:467-510 buildSphereCloud + :615-638 getPlanes +
       same-plane merge -> transform to rig frame -> cross-sensor groupPlanes
       (with the 8->1 wraparound) -> global mergePlanes
 
-The JAX device program is XLA code; here it is plain torch ops (no kernel
-of its own). Constants from include/Miscellaneous.h:51-76 via
-config.GlobalParams.
+The JAX device program is XLA code; here it is plain torch ops, but for
+the label refinement's growth loop, which runs on the card in one kernel
+launch (ops/planes_seg.py::grow_labels, csrc/planes_refine.cu). Constants
+from include/Miscellaneous.h:51-76 via config.GlobalParams.
 """
 
 from __future__ import annotations

@@ -68,6 +68,9 @@ def _bind(lib) -> None:
     fn = lib.rgbd360_warp_gather_single
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.rgbd360_refine_grow
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
 
 
 def build(verbose: bool = False) -> str:

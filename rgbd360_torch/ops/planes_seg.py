@@ -15,8 +15,12 @@ over whole connected column runs. JAX computes the run minima with
 ``lax.associative_scan`` segmented scans; here a run is a segment id
 (the cumulative count of run starts) and its minimum one
 ``scatter_reduce(amin)`` plus a gather. Both are exact minima, so every
-round, and the fixed point, is the same. The ``while_loop``s become host
-loops on ``any(changed)`` with the same ``max_sweeps = h*w`` backstop.
+round, and the fixed point, is the same. Both ``while_loop``s keep the
+``max_sweeps = h*w`` backstop. The flood fill's is a host loop on
+``any(changed)``. The refinement's growth loop (``grow_labels``) runs on a
+CUDA tensor to its fixed point in one launch of csrc/planes_refine.cu, with
+no host read; on the CPU it is the plain host loop ``grow_labels_plain``,
+which the kernel equals bit for bit. ``REFINE`` counts both.
 
 The JAX functions take one sensor and are vmapped; these take (S, H, W).
 A batch keeps sweeping until every sensor has converged; a sweep of a
@@ -25,13 +29,21 @@ converged sensor changes nothing.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from rgbd360_torch.ops.normals import dot3
+from rgbd360_torch.utils import timing
 
 ANGULAR_THRESHOLD = 0.039812  # rad (~2.3 deg)
 DISTANCE_THRESHOLD = 0.02  # m
 MIN_INLIERS = 80
+
+# the refinement's growth loop: launches of csrc/planes_refine.cu, calls that
+# ran the plain loop and the rounds those ran (counted on the host, with no
+# read of the device); reset by the caller that reads them
+REFINE = timing.counter_group("planes_seg.REFINE", {"kernel": 0, "host_loop": 0, "host_rounds": 0})
 
 
 def cos_threshold(angular_threshold: float = ANGULAR_THRESHOLD) -> float:
@@ -238,8 +250,23 @@ def refine_plane_labels(
     # labeled pixels of NON-model regions keep their label and never absorb
     grows_static = (labels >= 0) & ~grows
 
+    lab_grow, _rounds = grow_labels(
+        lab_grow.contiguous(), mod_n.contiguous(), mod_d.contiguous(), grows_static.contiguous(),
+        valid_xyz.contiguous(), p.contiguous(), distance_threshold, max_sweeps)
+    return torch.where(grows_static, labels, lab_grow)
+
+
+def grow_labels_plain(lab_grow, mod_n, mod_d, grows_static, valid_xyz, p, distance_threshold, max_sweeps):
+    """The refinement's growth loop in plain torch ops, a host loop on
+    ``any(grow)`` (the JAX ``while_loop``, planes_seg.py:313), on the
+    tensors' device. Returns (labels, the rounds it ran: the last one grew
+    nothing, unless ``max_sweeps`` cut the loop)."""
+    s, h, w = lab_grow.shape
+    dev = lab_grow.device
+    rounds = 0
     for _ in range(max_sweeps):
-        best = torch.full((s, h, w), -1, dtype=labels.dtype, device=dev)
+        rounds += 1
+        best = torch.full((s, h, w), -1, dtype=lab_grow.dtype, device=dev)
         best_n = torch.zeros((s, h, w, 3), device=dev)
         best_d = torch.zeros((s, h, w), device=dev)
         for dr, dc in ((-1, 0), (1, 0), (0, -1), (0, 1)):
@@ -257,4 +284,67 @@ def refine_plane_labels(
         mod_d = torch.where(grow, best_d, mod_d)
         if not bool(grow.any()):
             break
-    return torch.where(grows_static, labels, lab_grow)
+    timing.count(REFINE, "host_loop")
+    timing.count(REFINE, "host_rounds", rounds)
+    return lab_grow, rounds
+
+
+def grow_labels(lab_grow, mod_n, mod_d, grows_static, valid_xyz, p, distance_threshold=DISTANCE_THRESHOLD,
+                max_sweeps=None):
+    """The refinement's growth loop to its fixed point: each valid pixel
+    that is neither labelled (``lab_grow`` < 0) nor in a non-model region
+    (``grows_static``) takes the largest adjacent label whose plane
+    (``mod_n``, ``mod_d``: each pixel's own) fits its point ``p`` within
+    ``distance_threshold``, with that plane, round after round.
+
+    lab_grow (S, H, W) int32; mod_n, p (S, H, W, 3) and mod_d (S, H, W)
+    float32; grows_static, valid_xyz (S, H, W) bool; max_sweeps the
+    backstop (default H * W). Returns (labels (S, H, W), rounds). CPU
+    tensors run ``grow_labels_plain`` (rounds an int). CUDA tensors run
+    csrc/planes_refine.cu in one launch, with no host read, or raise;
+    rounds is then a device int32 (S,) tensor, the rounds each sensor ran,
+    for tests and tools: the frame path never reads it."""
+    if max_sweeps is None:
+        max_sweeps = lab_grow.shape[1] * lab_grow.shape[2]
+    if lab_grow.device.type == "cpu":
+        return grow_labels_plain(lab_grow, mod_n, mod_d, grows_static, valid_xyz, p, distance_threshold, max_sweeps)
+    return _launch_grow(lab_grow, mod_n, mod_d, grows_static, valid_xyz, p, distance_threshold, max_sweeps)
+
+
+def _launch_grow(lab_grow, mod_n, mod_d, grows_static, valid_xyz, p, distance_threshold, max_sweeps):
+    """Run csrc/planes_refine.cu on CUDA tensors; raise on any failure."""
+    from rgbd360_torch.kernels.build import load_library
+
+    if lab_grow.dim() != 3 or lab_grow.numel() == 0:
+        raise ValueError(f"lab_grow must be a non-empty (S, H, W), got {tuple(lab_grow.shape)}")
+    s, h, w = lab_grow.shape
+    want = ((lab_grow, "lab_grow", (s, h, w), torch.int32), (mod_n, "mod_n", (s, h, w, 3), torch.float32),
+            (mod_d, "mod_d", (s, h, w), torch.float32), (grows_static, "grows_static", (s, h, w), torch.bool),
+            (valid_xyz, "valid_xyz", (s, h, w), torch.bool), (p, "p", (s, h, w, 3), torch.float32))
+    for t, name, shape, dtype in want:
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
+        if t.device != lab_grow.device:
+            raise ValueError(f"{name} lies on {t.device}, lab_grow on {lab_grow.device}: one device for all")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not 0 <= max_sweeps < 2**31 or h * w >= 2**31:
+        raise ValueError(f"max_sweeps {max_sweeps} or {h} x {w} pixels out of the kernel's int32 range")
+    dev = lab_grow.device
+    out = torch.empty_like(lab_grow)
+    rounds = torch.empty(s, dtype=torch.int32, device=dev)
+    # the kernel's state: two int32 buffers a sensor (csrc/planes_refine.cu)
+    scratch = torch.empty((s, 2, h * w), dtype=torch.int32, device=dev)
+    lib = load_library()
+    # <<<grid, block, smem, stream>>> launches on the calling thread's
+    # current device: make it the tensors' card
+    with torch.cuda.device_of(lab_grow):
+        ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (lab_grow, mod_n, mod_d, grows_static, valid_xyz, p, out,
+                                                        rounds, scratch)]
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        err = lib.rgbd360_refine_grow(*ptrs[:6], ctypes.c_float(distance_threshold), max_sweeps, s, h, w, *ptrs[6:],
+                                      stream)
+    if err != 0:
+        raise RuntimeError(f"planes_refine kernel launch failed: cudaError_t {err}")
+    timing.count(REFINE, "kernel")
+    return out, rounds

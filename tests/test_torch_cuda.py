@@ -723,3 +723,162 @@ def test_dryrun_multichip_on_one_card(cuda, capsys):
         assert launches["warp_gather_batched"] == sweeps["windowed"]
         assert launches["warp_gather_batched_multi"] == sweeps["full_coverage"] + sweeps["exact_final_dual"]
     assert report["lc"]["sweeps"]["full_coverage"] > 0 and report["kernel"]["sweeps"]["windowed"] > 0
+
+
+# -- the plane refinement's growth loop (csrc/planes_refine.cu) ---------------------
+
+def float_refine_scene(s, h, w, seed):
+    """grow_labels inputs at (s, h, w) in floats: blocks of 8 x 8 on five
+    random planes, each a model region, a non-model one, open pixels or
+    invalid ones. Half the open points sit well inside or outside the
+    0.02 m threshold, half within ~1e-5 of it, where only the fit's exact
+    rounding decides."""
+    from test_torch_planes_refine import THR
+
+    rng = np.random.default_rng(seed)
+    normals = rng.normal(size=(5, 3))
+    normals /= np.linalg.norm(normals, axis=1, keepdims=True)
+    offsets = rng.uniform(1.0, 3.0, 5)
+    bh, bw = -(-h // 8), -(-w // 8)
+    plane = np.repeat(np.repeat(rng.integers(0, 5, (s, bh, bw)), 8, 1), 8, 2)[:, :h, :w]
+    kind = np.repeat(np.repeat(rng.choice(4, size=(s, bh, bw), p=[0.3, 0.1, 0.5, 0.1]), 8, 1), 8, 2)[:, :h, :w]
+    label = np.repeat(np.repeat(rng.integers(0, h * w, (s, bh, bw)), 8, 1), 8, 2)[:, :h, :w]
+    n, d = normals[plane], offsets[plane]
+    q = rng.uniform(-2.0, 2.0, (s, h, w, 3))
+    q -= ((q * n).sum(-1) - d)[..., None] * n  # on the plane
+    near = rng.random((s, h, w)) < 0.5
+    off = np.where(near, THR * (1.0 + rng.uniform(-2e-5, 2e-5, (s, h, w))) * rng.choice([-1.0, 1.0], (s, h, w)),
+                   rng.uniform(-1.6 * THR, 1.6 * THR, (s, h, w)))
+    p = (q + off[..., None] * n).astype(np.float32)
+    valid = kind != 3
+    p[~valid] = 0.0
+    model = kind == 0
+    return dict(
+        lab=np.where(model, label, -1).astype(np.int32),
+        n=np.where(model[..., None], n, rng.normal(size=n.shape)).astype(np.float32),
+        d=np.where(model, d, rng.normal(size=d.shape)).astype(np.float32),
+        static=kind == 1, valid=valid, p=p,
+    )
+
+
+def assert_kernel_equals_plain_loop(sc, cuda, max_sweeps=None, thr=None):
+    """The kernel's labels and per-sensor rounds against the plain loop on
+    the card, over the batch and over each sensor alone."""
+    from test_torch_planes_refine import THR, grow_args
+
+    from rgbd360_torch.ops import planes_seg
+
+    thr = THR if thr is None else thr
+    args = grow_args(sc, cuda)
+    before = planes_seg.REFINE["kernel"]
+    got, rounds = planes_seg.grow_labels(*args, thr, max_sweeps)
+    torch.cuda.synchronize()
+    assert planes_seg.REFINE["kernel"] == before + 1
+    want, want_rounds = planes_seg.grow_labels_plain(*args, thr, max_sweeps or sc["lab"][0].size)
+    assert torch.equal(got, want)
+    per_sensor = rounds.cpu().tolist()
+    assert max(per_sensor) == want_rounds
+    for i in range(len(per_sensor)):
+        one = [a[i:i + 1].contiguous() for a in args]
+        assert planes_seg.grow_labels_plain(*one, thr, max_sweeps or sc["lab"][0].size)[1] == per_sensor[i]
+    return per_sensor
+
+
+@pytest.mark.cuda
+def test_refine_growth_kernel_equals_the_plain_loop_on_crafted_scenes(cuda):
+    """The CPU file's lattice scenes (contested pixels, non-model regions,
+    NaN pixels, an idle sensor, a max_sweeps cut) and float scenes at the
+    sensor program's shape, whose fits sit on the threshold."""
+    from test_torch_planes_refine import REFINE_SCENES, refine_scene
+
+    for name in REFINE_SCENES:
+        sc, max_sweeps = refine_scene(name)
+        per_sensor = assert_kernel_equals_plain_loop(sc, cuda, max_sweeps)
+        if name == "idle_sensor":
+            assert per_sensor[1] == 1 and per_sensor[0] > 1
+        if name == "corridor_cut":
+            assert per_sensor == [max_sweeps]
+    for seed in (1, 2):
+        per_sensor = assert_kernel_equals_plain_loop(float_refine_scene(8, 120, 160, seed), cuda)
+        assert max(per_sensor) > 2
+    assert_kernel_equals_plain_loop(float_refine_scene(8, 120, 160, 3), cuda, max_sweeps=3)
+
+
+@pytest.mark.cuda
+def test_refine_growth_kernel_at_the_stereo_panorama_shape(cuda):
+    """One sensor of 1024 x 180, the stereo panorama's shape, with its
+    threshold 0.05: one block sweeps 184,320 pixels a round."""
+    per_sensor = assert_kernel_equals_plain_loop(float_refine_scene(1, 180, 1024, 4), cuda, thr=0.05)
+    assert per_sensor[0] > 2
+
+
+@pytest.mark.cuda
+def test_refine_growth_kernel_on_loop40_captures(cuda, monkeypatch, tmp_path):
+    """All 8 sensors of loop40 captures 0, 7 and 15 (the SLAM cell's circle:
+    1.1 m, 9 deg a step, calibration seed 0) through Frame360.
+    build_device_fused: the growth loop's inputs as the frame program makes
+    them, kernel against plain loop on the card, labels and rounds; and the
+    whole stats buffer of the kernel route byte-equal to the plain loop's."""
+    from rgbd360_torch.core.frame360 import Frame360
+    from rgbd360_torch.io.calib import Calib360
+    from rgbd360_torch.ops import planes_seg
+    from tools import synthetic_rig as rig
+
+    rts = rig.write_calib_root(str(tmp_path))
+    calib = Calib360.load(str(tmp_path))
+    kernel_route = planes_seg.grow_labels
+    seen = []
+
+    def spy(*args):
+        seen.append(args)
+        return kernel_route(*args)
+
+    rounds = {}
+    for i in (0, 7, 15):
+        frame = Frame360(calib, i, cuda)
+        frame.set_raw(rig.room_capture(rig.loop_pose(2.0 * np.pi * i / 40, 1.1), rts))
+        monkeypatch.setattr(planes_seg, "grow_labels", spy)
+        stats = frame.build_device_fused(ship_labels=True)
+        monkeypatch.setattr(planes_seg, "grow_labels", lambda *a: planes_seg.grow_labels_plain(*a))
+        host_loops = planes_seg.REFINE["host_loop"]
+        stats_plain = frame.build_device_fused(ship_labels=True)
+        assert planes_seg.REFINE["host_loop"] == host_loops + 1
+        assert torch.equal(stats, stats_plain)
+        args = seen[-1]
+        got, k_rounds = kernel_route(*args)
+        want, want_rounds = planes_seg.grow_labels_plain(*args)
+        assert torch.equal(got, want)
+        rounds[i] = k_rounds.cpu().tolist()
+        assert max(rounds[i]) == want_rounds
+        for s in range(8):
+            one = [a[s:s + 1].contiguous() for a in args[:6]] + list(args[6:])
+            assert planes_seg.grow_labels_plain(*one)[1] == rounds[i][s]
+    print(f"rounds per sensor: {rounds}")
+    assert max(rounds[7]) >= 100
+
+
+@pytest.mark.cuda
+def test_refine_growth_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from test_torch_planes_refine import THR, grow_args, refine_scene
+
+    from rgbd360_torch.ops import planes_seg
+
+    args = grow_args(refine_scene("lattice")[0], cuda)
+
+    def call(i, t):
+        planes_seg.grow_labels(*(args[:i] + [t] + args[i + 1:]), THR)
+
+    with pytest.raises(ValueError):
+        call(0, args[0].to(torch.int64))  # dtype
+    with pytest.raises(ValueError):
+        call(1, args[1].to(torch.float64))
+    with pytest.raises(ValueError):
+        call(3, args[3].to(torch.uint8))
+    with pytest.raises(ValueError):
+        call(5, args[5][:, :, :-1].contiguous())  # shape
+    with pytest.raises(ValueError):
+        call(5, args[5].transpose(1, 2).contiguous().transpose(1, 2))  # contiguity
+    with pytest.raises(ValueError):
+        call(2, args[2].cpu())  # two devices
+    with pytest.raises(ValueError):
+        planes_seg.grow_labels(*(a[:0] for a in args), THR)  # no sensor
