@@ -14,7 +14,15 @@ card unless --device names another device. Each frame's line ends with its
 wall time (the loop iteration, the next frame's pipeline work included).
 --live-view DIR serves the map as it grows (utils/live_viewer.py: DIR/
 live.html polls DIR/live.json, rewritten at every keyframe) from an HTTP
-server on 127.0.0.1:--live-port (0 = ephemeral).
+server on 127.0.0.1:--live-port (0 = ephemeral). --lc-thread runs the loop
+closer on its own thread (and, on a card, its own stream), as the reference
+app does: each keyframe is queued for it and each frame drains what it has
+accepted. Before each partition the app waits for it to search the
+keyframes queued so far and drains them, so that every partition, and with
+it every later search, sees the map the synchronous mode sees (the
+reference app does not partition). After the last frame the app stops it
+(every queued keyframe is searched), drains the rest and optimizes the
+graph once more, so the map holds every closure the thread accepted.
 
 Not ported: the compile prewarm of the JAX app (the port compiles
 nothing).
@@ -37,7 +45,7 @@ import numpy as np
 from rgbd360_torch.apps.common import default_matcher_config, load_calib, rot_offset, sequence_frames
 from rgbd360_torch.config import default_params
 from rgbd360_torch.core.graph_optimizer import GraphOptimizer
-from rgbd360_torch.core.loop_closure import LoopClosure360
+from rgbd360_torch.core.loop_closure import THREAD, LoopClosure360
 from rgbd360_torch.core.map360 import Map360
 from rgbd360_torch.core.matcher import PLANAR_ODOMETRY_3DOF
 from rgbd360_torch.core.plane_extraction import planes_pipeline
@@ -47,7 +55,7 @@ from rgbd360_torch.core.relocalizer import Relocalizer360
 from rgbd360_torch.core.topological import TopologicalMap360
 from rgbd360_torch.utils.live_viewer import LiveMapViewer
 from rgbd360_torch.utils.map_html import map_to_html
-from rgbd360_torch.utils.timing import span, stage
+from rgbd360_torch.utils.timing import count, span, stage
 from rgbd360_torch.utils.viz import save_trajectory
 
 TRACK_BACK_KFS = 5  # reference SphereGraphSLAM.cpp:175-180
@@ -89,6 +97,23 @@ def run(argv=None) -> SimpleNamespace:
     loop_closer = LoopClosure360(world, optimizer, cfg, device=args.device)
     if args.lc_thread:
         loop_closer.start()
+
+    def drain() -> int:
+        """Move the loop closer's handoff into the topology under the map
+        mutex (reference :251-271) and, if anything came, optimize the
+        graph. Returns the closures drained."""
+        drained = 0
+        with world.mutex:
+            while loop_closer.connections_lc:
+                kf1, conns = loop_closer.connections_lc.popitem()
+                for kf2, sso in conns.items():
+                    topo.add_connection(kf1, kf2, float(sso))
+                    drained += 1
+        if drained:
+            with world.mutex, stage("Graph optimization"):
+                optimizer.optimize_graph()
+                world.optimized_poses = [p.astype(np.float32) for p in optimizer.get_poses()]
+        return drained
 
     current_pose = np.eye(4, dtype=np.float64)
     n_lc = 0
@@ -180,27 +205,25 @@ def run(argv=None) -> SimpleNamespace:
 
             kf_id = len(world) - 1
             if args.lc_thread:
-                loop_closer.notify_keyframe(kf_id)
+                loop_closer.notify_keyframe(kf_id, frame=frame_no)
             else:
                 with stage("Loop closure"):
                     loop_closer.process_new_keyframe(kf_id)
-            # drain the LC handoff (reference :251-271), for both modes, under
-            # the map mutex
-            drained = 0
-            with world.mutex:
-                while loop_closer.connections_lc:
-                    kf1, conns = loop_closer.connections_lc.popitem()
-                    for kf2, sso in conns.items():
-                        topo.add_connection(kf1, kf2, float(sso))
-                        drained += 1
+            drained = drain()  # both modes
             if drained:
                 n_lc += drained
-                with world.mutex, stage("Graph optimization"):
-                    optimizer.optimize_graph()
-                    world.optimized_poses = [p.astype(np.float32) for p in optimizer.get_poses()]
                 line += f"; {drained} loop closure(s), graph optimized"
 
             if len(world) % PARTITION_EVERY == 0:
+                if args.lc_thread:
+                    # the partition reads the SSO graph with the closures of
+                    # every keyframe it partitions, as the synchronous mode's
+                    with span("loop closure wait"):
+                        loop_closer.wait()
+                        late = drain()
+                    if late:
+                        n_lc += late
+                        line += f"; {late} loop closure(s) before the partition, graph optimized"
                 with stage("Partition"):
                     changed = topo.partitioner()
                 if changed:
@@ -211,7 +234,14 @@ def run(argv=None) -> SimpleNamespace:
                 viewer.update(world)
 
     if args.lc_thread:
-        loop_closer.stop()
+        t0 = time.perf_counter_ns()
+        with span("loop closure drain"):
+            loop_closer.stop()
+            drained = drain()
+        count(THREAD, "drain_ns", time.perf_counter_ns() - t0)
+        if drained:
+            n_lc += drained
+            print(f"loop closure drain: {drained} loop closure(s) after the last frame, graph optimized")
     if viewer is not None:
         viewer.update(world)
         viewer.close()

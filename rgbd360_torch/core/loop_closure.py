@@ -33,18 +33,33 @@ Differences from the JAX module, each for a reason:
     the caller names another.
 
 The search is exposed synchronously (``process_new_keyframe``,
-deterministic) and as a daemon thread (``start``/``stop``) mirroring the
-reference's threading (ctor at :83-94).
+deterministic) and on a daemon thread (``start``/``notify_keyframe``/
+``stop``) mirroring the reference's threading (ctor at :83-94). The thread
+is one per device for the process (``worker_of``), which every loop closer
+hands its keyframes to in turn. On a card it issues all of its device work
+on a stream of its own, which first waits on an event that
+``notify_keyframe`` records on the caller's stream: the thread reads a
+keyframe's panorama only once the tracking stream has written it, and its
+results reach the host through its stream alone. Its CUDA graphs are its
+thread's own (ops/level_graphs.py), captured under the process's capture
+lock and replayed on its stream. ``wait`` returns once every keyframe
+notified before it has been searched; ``stop`` waits so, then lets the
+thread go.
 
 Traced (utils/timing.py): the span "LC dense refinement" (attr ``pairs``)
-covers phase 2, batched or single, up to its read-back; the counter group
-``LC`` counts the search's funnel over every loop closer of the process.
+covers phase 2, batched or single, up to its read-back, and the span "loop
+closure (thread)" (attr ``frame``) each keyframe the thread takes; the
+counter groups ``LC`` (the search's funnel) and ``THREAD`` (the thread's
+queue) count over every loop closer of the process.
 """
 
 from __future__ import annotations
 
+import functools
 import queue
 import threading
+import time
+from contextlib import nullcontext
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -76,6 +91,48 @@ MAX_CANDIDATE_DIST = 5.0  # metres (:291-294)
 LC = timing.counter_group("loop_closure.LC", {"keyframes": 0, "candidates": 0, "prefilter_kept": 0,
                                               "pbmap_kept": 0, "refinements": 0, "refined_pairs": 0,
                                               "accepted": 0})
+# The background thread's queue, summed over the process's loop closers:
+# "notified" keyframes queued, "taken" those the thread took, "queued_at_take"
+# the sum over takes of the keyframes still waiting behind the one taken,
+# "busy_ns" the thread's time on its keyframes, "drain_ns" the caller's stop
+# and final drain (apps/sphere_graph_slam.py), "dropped" keyframes notified
+# but not taken when stop() returns (0: stop waits for the queue).
+THREAD = timing.counter_group("loop_closure.THREAD", {"notified": 0, "taken": 0, "queued_at_take": 0,
+                                                      "busy_ns": 0, "drain_ns": 0, "dropped": 0})
+
+
+class _Worker:
+    """The loop closers' thread on one device: long-lived and, on a card,
+    with a stream of its own, it runs the jobs that every loop closer of
+    the process queues, in turn. Its CUDA graphs are its thread's own
+    (ops/level_graphs.py), so they live as long as the process, as the
+    tracking thread's do: a thread made per session would capture them anew
+    in every session, and its stream, drawn anew, would cycle through
+    torch's pool of streams and come to share one with another thread's
+    captures."""
+
+    def __init__(self, device: torch.device):
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self.jobs: "queue.Queue" = queue.Queue()
+        threading.Thread(target=self._run, daemon=True, name="LoopClosure360").start()
+
+    def _run(self) -> None:
+        with torch.cuda.stream(self.stream) if self.stream is not None else nullcontext():
+            while True:
+                self.jobs.get()()
+
+
+_WORKERS: Dict[torch.device, _Worker] = {}
+_WORKERS_LOCK = threading.Lock()
+
+
+def worker_of(device: torch.device) -> _Worker:
+    """The loop closers' thread (and stream) on ``device``, made at its
+    first use."""
+    with _WORKERS_LOCK:
+        if device not in _WORKERS:
+            _WORKERS[device] = _Worker(device)
+        return _WORKERS[device]
 
 
 class LoopClosure360:
@@ -99,9 +156,10 @@ class LoopClosure360:
         self.refinements: List[int] = []
         # (candidate, keyframe, refined in a batch) of each accepted closure
         self.accepted: List[Tuple[int, int, bool]] = []
-        self._queue: "queue.Queue[int]" = queue.Queue()
-        self._thread: Optional[threading.Thread] = None
-        self._stop = threading.Event()
+        # the thread's worker from start() to stop()
+        self._worker: Optional[_Worker] = None
+        self._error: Optional[BaseException] = None
+        self._notified = self._taken = 0
 
     # -- candidate scan (reference :173-294) -------------------------------------
     def _candidates(self, kf_id: int):
@@ -248,30 +306,63 @@ class LoopClosure360:
         return out
 
     # -- background thread (reference ctor :83-94) ---------------------------------
-    def notify_keyframe(self, kf_id: int) -> None:
-        self._queue.put(kf_id)
+    def notify_keyframe(self, kf_id: int, frame: Optional[int] = None) -> None:
+        """Queue kf_id for the thread; ``frame`` names the caller's frame in
+        the thread's span. On a card, an event recorded on the caller's
+        stream marks what the thread must wait for before it reads."""
+        if self._worker is None:
+            raise RuntimeError("LoopClosure360.notify_keyframe before start()")
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        self._notified += 1
+        timing.count(THREAD, "notified")
+        self._worker.jobs.put(functools.partial(self._take, (kf_id, kf_id if frame is None else frame, event)))
 
     def start(self) -> None:
-        if self._thread is not None:
-            return
-        self._stop.clear()
+        """Hand this loop closer's keyframes to the device's loop-closure
+        thread (worker_of)."""
+        if self._worker is None:
+            self._worker = worker_of(self.device)
 
-        def run():
-            while not self._stop.is_set():
-                try:
-                    kf_id = self._queue.get(timeout=0.2)
-                except queue.Empty:
-                    continue
-                try:
-                    self.process_new_keyframe(kf_id)
-                except Exception as exc:  # keep the thread alive, as the reference's
-                    print(f"LoopClosure360: error on kf {kf_id}: {exc}")
+    def _take(self, item: tuple) -> None:
+        """Search one notified keyframe, on the thread and its stream."""
+        kf_id, frame, event = item
+        self._taken += 1
+        timing.count(THREAD, "taken")
+        timing.count(THREAD, "queued_at_take", self._notified - self._taken)
+        t0 = time.perf_counter_ns()
+        try:
+            if event is not None:
+                torch.cuda.current_stream(self.device).wait_event(event)
+            with timing.span("loop closure (thread)", frame=frame):
+                self.process_new_keyframe(kf_id)
+        except Exception as exc:  # keep the thread alive, as the reference's; stop() raises it
+            print(f"LoopClosure360: error on kf {kf_id}: {exc!r}")
+            if self._error is None:
+                self._error = exc
+        timing.count(THREAD, "busy_ns", time.perf_counter_ns() - t0)
 
-        self._thread = threading.Thread(target=run, daemon=True, name="LoopClosure360")
-        self._thread.start()
+    def wait(self) -> None:
+        """Return once every keyframe notified before this call has been
+        searched (and its closures handed over)."""
+        if self._worker is not None:
+            done = threading.Event()
+            self._worker.jobs.put(done.set)
+            done.wait()
 
     def stop(self) -> None:
-        self._stop.set()
-        if self._thread is not None:
-            self._thread.join(timeout=5)
-            self._thread = None
+        """Search every keyframe notified before this call, then let the
+        thread go; raise the first exception the thread caught, if any. A
+        keyframe notified and still not taken then counts as dropped."""
+        if self._worker is not None:
+            self.wait()
+            if self._worker.stream is not None:
+                self._worker.stream.synchronize()
+            self._worker = None
+        timing.count(THREAD, "dropped", self._notified - self._taken)
+        self._notified = self._taken = 0
+        if self._error is not None:
+            exc, self._error = self._error, None
+            raise exc

@@ -10,6 +10,14 @@ keyframe per area (highest SSO row sum). The eigendecompositions run in
 NumPy (matrices are at most a few hundred square); the structure matches
 mrpt::graphs::CGraphPartitioner::RecursiveSpectralPartition with threshold
 0.8 and minimum part size 3 (reference :391-411).
+
+One difference from the JAX module: the partitioner takes every block
+between a vicinity area and an outside area out before it re-homes any of
+their rows. Re-homed one at a time, a row that moves to another vicinity
+area landed in that area's stale block with the same outside area, still
+to be re-homed: its rows were then scrambled, or, where the area shrank,
+the copy raised (a topology the threaded loop closer's late closures
+make).
 """
 
 from __future__ import annotations
@@ -226,13 +234,15 @@ class TopologicalMap360:
             # indexed by the new memberships — re-homing it through
             # old_members would scramble rows and drop neighbor links
             new_ids = set(area_ids)
-            outside_keys = [
-                k for k in list(self.neig_sso.keys())
+            # all of them taken out before any is re-homed: a row may move to
+            # another vicinity area whose block with the same outside area is
+            # still to be re-homed, and must not land in that stale block
+            outside = [
+                (k, self.neig_sso.pop(k)) for k in list(self.neig_sso.keys())
                 if ((k[0] in vicinity) != (k[1] in vicinity))
                 and not (k[0] in new_ids and k[1] in new_ids)
             ]
-            for key in outside_keys:
-                blk = self.neig_sso.pop(key)
+            for key, blk in outside:
                 vic, out = (key[0], key[1]) if key[0] in vicinity else (key[1], key[0])
                 m.neighbor_areas[out].discard(vic)
                 members = old_members.get(vic, [])

@@ -15,7 +15,13 @@ key runs uncaptured when its bytes, foreseen per pair from the same spec at
 another B, would take the thread's graphs past GRAPH_BYTES_PER_THREAD. So a
 thread that meets many batch sizes, as the loop closer does, keeps graphs
 for the first ones only. A thread's graphs and buffers are its own: the
-mesh's shard threads and the SLAM app's workers never share them.
+mesh's shard threads and the SLAM app's workers never share them. The SLAM
+app's loop-closer thread (--lc-thread; one a device for the process,
+core/loop_closure.py) captures its graphs under the capture lock while the
+tracking thread replays and reads its own, and replays them on the loop
+closer's stream. CUDA refuses a device-wide sync while another thread
+captures: code that may run beside a capture waits on its stream or an
+event, or holds _CAPTURE_LOCK around the sync.
 """
 
 from __future__ import annotations

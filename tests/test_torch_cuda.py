@@ -630,6 +630,83 @@ def test_frame_timing_sync_beside_a_capture(cuda, monkeypatch):
 
 
 @pytest.mark.cuda
+def test_the_loop_closer_thread_refines_on_its_own_stream_bit_for_bit(cuda, monkeypatch, tmp_path):
+    """SphereGraphSLAM with --lc-thread on the card over a 5-capture arc (6
+    deg steps; the loop closer's trajectory gap cut to 0.2 m so that it
+    closes three loops, one through the facade, two in a batch): every
+    align the loop closer's thread issues runs on the loop closer's stream,
+    not the caller's, and each accepted closure's edge (pose and
+    information) equals the synchronous session's bit for bit. Then a
+    thread searches keyframe 4 three times over that map: its batch of two
+    runs uncaptured, then is captured on its thread and replayed, each time
+    bit-equal to the synchronous session's batch."""
+    import threading
+
+    from rgbd360_torch.apps import sphere_graph_slam as sgs
+    from rgbd360_torch.apps.common import default_matcher_config
+    from rgbd360_torch.core import loop_closure
+    from rgbd360_torch.core.register_photoicp import RegisterPhotoICP
+    from rgbd360_torch.ops import photoicp
+    from tools import synthetic_rig as rig
+
+    calib, seq = str(tmp_path / "calib"), str(tmp_path / "seq")
+    rig.write_sequence(seq, rig.write_calib_root(calib), frames=5, loops=5 * 6.0 / 360.0, radius=0.8)
+    argv = [seq, "--calib-root", calib, "--device", "cuda"]
+    monkeypatch.setattr(loop_closure, "MIN_TRAJECTORY_GAP", 0.2)
+    streams, batches = [], []
+    real_batch, real_refine = loop_closure.align_batch, loop_closure.LoopClosure360._refine_batch
+    real_align = RegisterPhotoICP.align_frames360
+
+    def note():
+        if threading.current_thread().name == "LoopClosure360":
+            streams.append(torch.cuda.current_stream(cuda))
+
+    def batch(*a, **k):
+        note()
+        return real_batch(*a, **k)
+
+    def align(self, *a, **k):
+        note()
+        return real_align(self, *a, **k)
+
+    def refine(self, new_kf, survivors):
+        out = real_refine(self, new_kf, survivors)
+        batches.append((new_kf.id, out))
+        return out
+
+    monkeypatch.setattr(loop_closure, "align_batch", batch)
+    monkeypatch.setattr(RegisterPhotoICP, "align_frames360", align)
+    monkeypatch.setattr(loop_closure.LoopClosure360, "_refine_batch", refine)
+    sync = sgs.run(argv)
+    threaded = sgs.run(argv + ["--lc-thread"])
+    own = loop_closure.worker_of(threaded.loop_closer.device).stream
+    assert len(streams) == 2 and all(s == own for s in streams)
+    assert own != torch.cuda.current_stream(cuda) and own != torch.cuda.default_stream(cuda)
+    accepted = sorted(sync.loop_closer.accepted)
+    assert accepted == sorted(threaded.loop_closer.accepted) and len(accepted) == 3
+    assert threaded.n_loop_closures == sync.n_loop_closures == 3
+    for cand, kf, _b in accepted:
+        for a, b in zip(sync.world.connection_kfs[kf][cand], threaded.world.connection_kfs[kf][cand]):
+            assert np.array_equal(a, b), (cand, kf)
+
+    # the synchronous session's batch, then the thread's
+    assert [k for k, _out in batches] == [4, 4] and len(batches[0][1]) == 2
+    want = batches[0][1]
+    captures = photoicp.GRAPHS["captures"]
+    lc = loop_closure.LoopClosure360(threaded.world, None, default_matcher_config(calib), device=cuda)
+    lc.start()
+    for _ in range(3):
+        lc.notify_keyframe(4)
+    lc.stop()
+    assert photoicp.GRAPHS["captures"] > captures
+    assert [k for k, _out in batches] == [4] * 5
+    for _k, out in batches[1:]:
+        for (c0, pose0, av0, h0, sso0), (c1, pose1, av1, h1, sso1) in zip(want, out):
+            assert c0 == c1 and av0 == av1 and sso0 == sso1
+            assert np.array_equal(pose0, pose1) and np.array_equal(h0, h1)
+
+
+@pytest.mark.cuda
 def test_graph_cache_stops_capturing_at_its_byte_bound(cuda, monkeypatch):
     """A thread captures a new key only if its graphs stay within
     GRAPH_BYTES_PER_THREAD with it: with a bound of one byte the second
